@@ -4,35 +4,61 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab-host-reads   # device, build, then only the
                                             # A/B of the u256 loops' host read
+    python3 chip_smoke.py --ab-windows      # device, build, then only the
+                                            # A/B of the wave's memory windows
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 non-zero (nothing is caught):
 
-1. device: require CUDA; print the card's name and power limit;
-2. build: compile csrc/keccak_f.cu with nvcc for sm_90a (seconds, printed);
-3. kernel: keccak-f[1600] on 16384 seeded random states, bit-equal to
+1. device: require CUDA; print the card's name and power limit, the
+   host's CPU model and the host's dispatch time per trivial CUDA launch
+   (median of 1000), which sets the pace of a host-bound step;
+2. build: compile every csrc/*.cu with nvcc for sm_90a, one nvcc per
+   source, all started together (seconds and ptxas report printed);
+3. kernels: keccak-f[1600] on 16384 seeded random states, bit-equal to
    the plain PyTorch version on the same tensors; keccak256 of b"" and of
    a 64-byte mapping key on the card equal to the pure-Python oracle;
    kernel time (CUDA events around a CUDA-graph replay of 50 launches,
    median of 25) and plain time (median of 25 eager calls) beside the
    bound, the compiled kernel's SASS instruction count, and the kernel's
-   time at 4x and 16x the main path's n;
+   time at 4x and 16x the main path's n. Then slot_write, bit-equal to
+   its plain version on seeded [16384, 128, 16] int32 stacks with a
+   quarter of the masks off, on [16384, 12] int64 and [16384, 64] uint8
+   buffers, with two writes per lane on one slot and with out-of-range
+   indices; its graph-replay time, its bound, its plain version's time
+   and `Tensor.scatter_`'s, all with every mask set (where scatter_
+   computes the same function), and its time and bound with a quarter
+   of the masks off;
 4. main path: after one cold loop iteration (42 steps, timed apart),
    16384 lanes x 256 steps of the demo loop (calldata ->
    arithmetic -> storage -> loop) extended with a Solidity mapping-slot
    hash (SHA3 over 64 bytes, SLOAD/SSTORE of that slot) and a 3-block
    SHA3 over 320 bytes of calldata copied to memory, through
    make_code_table / make_batch / run on the card. The SHA3 phase must
-   have launched the kernel, sampled lanes' storage must equal values
-   computed in Python with the port's keccak oracle, and the first 128
-   lanes must equal, field by field, a device="cpu" run of those lanes;
-5. VMTests: every vendored suite through run_cases(hybrid=False) on the
+   have launched keccak_f1600 and the stack write slot_write, sampled
+   lanes' storage must equal values computed in Python with the port's
+   keccak oracle, and the first 128 lanes must equal, field by field, a
+   device="cpu" run of those lanes;
+5. symbolic wave: the JAX explorer's first wave at its defaults, 16384
+   lanes as 512 stripes of 32 over the 13 vendored contracts
+   (laser/symbolic_wave.py), through sym_run for up to 512 steps after a
+   cold pass of 64 steps timed apart: wall, ms/step, active lane-steps/s,
+   host syncs/step, both kernels' launches, arena fill, banked events,
+   the ArenaView readback and a 32-step profile; an untimed rerun, which
+   must give the same result, counts the lanes that overflowed the
+   arena; then reseed_wave_inplace into a second wave, which must equal
+   a fresh batch of the same seeds, and run it;
+6. symbolic parity: the pinned 260-lane wave on the card must hash, field
+   by field, to the JAX package's digests
+   (mythril_tpu_torch/laser/symbolic_wave_digests.json), and a 128-lane
+   wave on the card must equal a device="cpu" run, every field;
+7. VMTests: every vendored suite through run_cases(hybrid=False) on the
    card, name by name against the JAX package's pinned verdicts
    (mythril_tpu_torch/laser/vmtests_device_verdicts.json), with no
    mismatch and no "fail:";
-6. report: the `kernels` JSON line, then the result line.
+8. report: the `kernels` JSON line, then the result line.
 
-Between 4 and 5 it also prints where a main-path step's time goes
+After 4 it also prints where a main-path step's time goes
 (torch.profiler: CUDA kernels per step, device busy share, top kernels)
 and the times of the bit-serial u256 loops (DIV/SDIV/MOD/SMOD,
 ADDMOD/MULMOD, EXP) at full width.
@@ -44,6 +70,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -63,6 +90,12 @@ AB_MAIN_REPS = 3  # main-path runs per variant visit in --ab-host-reads
 GRAPH_LAUNCHES = 50  # kernel launches per timed CUDA-graph replay
 VM_MAX_STEPS = 4096
 VM_STRAGGLER_STEPS = 0
+SLOT_CAP, SLOT_W = 128, 16  # the main path's stack: [LANES, 128, 16] int32
+WAVE_STRIPES, WAVE_LANES_PER_STRIPE = 512, 32  # the explorer's 16384 lanes
+WAVE_MAX_STEPS = 512
+WAVE_COLD_STEPS = 64
+WAVE_PROFILE_STEPS = 32
+PARITY_STRIPES = 4  # a 128-lane wave on the card against the CPU
 
 # H100 SXM peaks (NVIDIA data sheet; the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -148,6 +181,38 @@ def time_cuda(fn, reps):
     return statistics.median(times)
 
 
+def host_cpu() -> str:
+    """The host's CPU model and core count, from /proc/cpuinfo (its
+    vendor, family and model numbers where it names no model)."""
+    fields = {}
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = line.partition(":")
+        fields.setdefault(key.strip().lower(), value.strip())
+    model = fields.get("model name", "unknown").removeprefix("unknown") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model", "stepping")
+        if k in fields) or "not named in /proc/cpuinfo"
+    return f"{model}, {os.cpu_count()} cores"
+
+
+def dispatch_us() -> float:
+    """Host microseconds per launch of a trivial CUDA op (an in-place add
+    on one element), median of 1000: what a host-bound step pays per
+    kernel on this host."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        x.add_(1)
+    sync()
+    times = []
+    for _ in range(1000):
+        t0 = time.perf_counter()
+        x.add_(1)
+        times.append(time.perf_counter() - t0)
+    sync()
+    return statistics.median(times) * 1e6
+
+
 def phase_device():
     import torch
 
@@ -158,15 +223,22 @@ def phase_device():
     log(card)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"capability {torch.cuda.get_device_capability(0)} count {torch.cuda.device_count()}")
+    log(f"[device] host CPU {host_cpu()}; dispatch {dispatch_us():.2f} us per trivial "
+        f"CUDA launch (median of 1000)")
     return name, card.splitlines()[0]
 
 
 def phase_build():
     from mythril_tpu_torch.native import build
 
-    secs = build.build("keccak_f", verbose=True)
-    log(f"[build] nvcc {build.nvcc()} built csrc/keccak_f.cu in {secs:.2f} s")
-    return secs
+    t0 = time.perf_counter()
+    built = build.build(verbose=True)
+    for stem, (secs, report) in built.items():
+        log(f"[build] csrc/{stem}.cu: done by {secs:.2f} s")
+        if report:
+            log(report)
+    log(f"[build] nvcc {build.nvcc()}: {len(built)} sources in parallel, "
+        f"{time.perf_counter() - t0:.2f} s wall")
 
 
 def sass_histogram():
@@ -282,6 +354,100 @@ def phase_kernel(card):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def slot_bound_ms(n, written, w, elem_bytes):
+    """The least time one slot write takes: read every lane's index (8 B)
+    and mask (1 B), and for each of the `written` lanes whose mask is set
+    read its value row and write its row, at the card's memory rate."""
+    return (n * (8 + 1) + 2 * written * w * elem_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_slot_write(card):
+    """slot_write against its plain version on the card, then its time."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.ops import slot_write as sw
+
+    rng = np.random.default_rng(3)
+    n = LANES
+
+    def rand(shape, dtype):
+        info = np.iinfo(dtype)
+        return torch.tensor(rng.integers(info.min, info.max, shape, dtype=dtype,
+                                         endpoint=True), device="cuda")
+
+    def write(s_cap, row, dtype, lo=0, hi=None):
+        hi = s_cap if hi is None else hi
+        return (torch.tensor(rng.integers(lo, hi, n), device="cuda"),
+                torch.tensor(rng.random(n) > 0.25, device="cuda"),
+                rand((n,) + row, dtype))
+
+    stack_write = write(SLOT_CAP, (SLOT_W,), np.int32)
+    second = list(write(SLOT_CAP, (SLOT_W,), np.int32))
+    same = torch.tensor(rng.random(n) > 0.5, device="cuda")
+    second[0] = torch.where(same, stack_write[0], second[0])
+    stack_label = f"[{n}, {SLOT_CAP}, {SLOT_W}] int32 stack"
+    cases = {
+        stack_label: (rand((n, SLOT_CAP, SLOT_W), np.int32), stack_write),
+        f"[{n}, 12] int64": (rand((n, 12), np.int64), write(12, (), np.int64)),
+        f"[{n}, 64] uint8": (rand((n, 64), np.uint8), write(64, (), np.uint8)),
+        "two writes per lane, half on one slot": (
+            rand((n, SLOT_CAP, SLOT_W), np.int32), stack_write + tuple(second)),
+        "indices out of range": (rand((n, SLOT_CAP), np.int32),
+                                 write(SLOT_CAP, (), np.int32, -3, SLOT_CAP + 3)),
+    }
+    mismatches = 0
+    max_abs_err = 0
+    for label, (buf, args) in cases.items():
+        got, want = buf.clone(), buf.clone()
+        sw.slot_write(got, *args)
+        sw.slot_write_plain(want, *args)
+        sync()
+        bad = int((got != want).sum())
+        if bad:
+            diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+            max_abs_err = max(max_abs_err, int(diff.max()))
+        mismatches += bad
+        log(f"[slot_write] {label}: {bad} mismatching elements")
+    if mismatches:
+        raise SystemExit("slot_write disagrees with its plain version")
+
+    # timed with every mask set, where Tensor.scatter_ along the slot axis
+    # computes the same function, so that the kernel, its plain version,
+    # the library call and the bound share one input; then with the
+    # quarter of the masks off of the equality case
+    buf = cases[stack_label][0]
+    idx, mask, val = stack_write
+    every = torch.ones_like(mask)
+    idx3 = idx[:, None, None].expand(n, 1, SLOT_W)
+    val3 = val[:, None, :]
+    lib_out, ker_out = buf.clone(), buf.clone()
+    lib_out.scatter_(1, idx3, val3)
+    sw.slot_write(ker_out, idx, every, val)
+    sync()
+    if not torch.equal(lib_out, ker_out):
+        raise SystemExit("scatter_ and slot_write disagree with every mask set")
+    del lib_out, ker_out
+    kernel_ms = graph_ms(lambda: sw.slot_write(buf, idx, every, val))
+    library_ms = graph_ms(lambda: buf.scatter_(1, idx3, val3))
+    sw.slot_write_plain(buf, idx, every, val)
+    plain_ms = time_cuda(lambda: sw.slot_write_plain(buf, idx, every, val), 25)
+    bound_ms = slot_bound_ms(n, n, SLOT_W, 4)
+    written = int(mask.sum())
+    part_ms = graph_ms(lambda: sw.slot_write(buf, idx, mask, val))
+    part_bound_ms = slot_bound_ms(n, written, SLOT_W, 4)
+    two_ms = graph_ms(lambda: sw.slot_write(buf, *stack_write, *second))
+    log(f"[slot_write] n={n}, [{n}, {SLOT_CAP}, {SLOT_W}] int32, every mask set: kernel "
+        f"{kernel_ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, Tensor.scatter_ "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes; {written} lanes write: "
+        f"kernel {part_ms:.4f} ms, bound {part_bound_ms:.4f} ms; two writes "
+        f"{two_ms:.4f} ms on {card}")
+    return dict(mismatches=mismatches, max_abs_err=max_abs_err, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=library_ms, quarter_masks_off_ms=part_ms,
+                quarter_masks_off_bound_ms=part_bound_ms)
+
+
 def phase_main_path(card):
     import numpy as np
     import torch
@@ -289,7 +455,7 @@ def phase_main_path(card):
     from mythril_tpu_torch.interop import batch_to_numpy
     from mythril_tpu_torch.laser.batch import make_batch, make_code_table, run
     from mythril_tpu_torch.laser.batch.state import Status, storage_dict
-    from mythril_tpu_torch.ops import keccak_cuda
+    from mythril_tpu_torch.ops import keccak_cuda, slot_write
     from mythril_tpu_torch.support import hostsync
 
     body, code = program()
@@ -307,21 +473,24 @@ def phase_main_path(card):
     log(f"[main] cold: first {LOOP_STEPS} steps {cold_ms:.3f} ms/step on {card}")
 
     keccak_cuda.LAUNCHES = 0
+    slot_write.LAUNCHES = 0
     hostsync.COUNT = 0
     t0 = time.perf_counter()
     final, steps = run(batch, table, max_steps=STEPS)
     sync()
     wall = time.perf_counter() - t0
-    launches = keccak_cuda.LAUNCHES
+    launches = {"keccak_f1600": keccak_cuda.LAUNCHES, "slot_write": slot_write.LAUNCHES}
     syncs = hostsync.COUNT
     log(f"[main] {LANES} lanes x {steps} steps: {wall:.3f} s, "
         f"{LANES * steps / wall:,.0f} transitions/s, {wall / steps * 1e3:.3f} ms/step, "
-        f"{syncs / steps:.2f} host syncs/step, {launches} keccak_f1600 launches "
-        f"on {card}")
+        f"{syncs / steps:.2f} host syncs/step, {launches['keccak_f1600']} keccak_f1600 "
+        f"launches, {launches['slot_write']} slot_write launches "
+        f"({launches['slot_write'] / steps:.2f}/step) on {card}")
     if steps != STEPS:
         raise SystemExit(f"run stopped after {steps} of {STEPS} steps")
-    if launches == 0:
-        raise SystemExit("the SHA3 phase never launched keccak_f1600")
+    for name, count in launches.items():
+        if count == 0:
+            raise SystemExit(f"the main path never launched {name}")
     host = batch_to_numpy(final)
     if not (host.status == Status.RUNNING).all():
         raise SystemExit("lanes halted in the endless demo loop")
@@ -344,15 +513,43 @@ def phase_main_path(card):
     return dict(launches=launches, wall=wall, steps=steps, syncs=syncs, cold_ms=cold_ms)
 
 
-def phase_profile(card, ms_per_step):
-    """Where a main-path step's time goes: CUDA kernels per step, device
-    busy time per step, and the kernels that take most of it, from
-    torch.profiler over LOOP_STEPS steps of the same workload. The
-    idle share divides busy time by the wall time of the same profiled
-    window; the window's ms/step beside the unprofiled run's shows what
-    the profiler costs."""
-    import numpy as np
+def profile_steps(label, fn, n_steps, card, ms_per_step):
+    """Where a step's time goes: CUDA kernels per step, device busy time
+    per step and the kernels that take most of it, from torch.profiler
+    around `fn` (n_steps steps). The idle share divides busy time by the
+    wall time of the same profiled window; the window's ms/step beside
+    the unprofiled run's shows what the profiler costs."""
     from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        window_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    if not kernels:
+        log(f"[{label}] the profiler recorded no device activity: not measured")
+        return None, None
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    per_step_ms = busy_us / n_steps / 1e3
+    log(f"[{label}] {n_steps} steps: {len(kernels) / n_steps:.1f} CUDA "
+        f"kernels/step, device busy {per_step_ms:.3f} ms/step of {window_ms:.3f} "
+        f"ms/step wall in the same profiled window (idle share "
+        f"{1 - per_step_ms / window_ms:.3f}; unprofiled {ms_per_step:.3f} ms/step) "
+        f"on {card}")
+    for name, us in top:
+        log(f"  {us / busy_us:6.1%}  {name[:100]}")
+    return per_step_ms, len(kernels) / n_steps
+
+
+def phase_profile(card, ms_per_step):
+    """The main path's step breakdown over LOOP_STEPS steps."""
+    import numpy as np
 
     from mythril_tpu_torch.laser.batch import make_batch, make_code_table, run
 
@@ -362,30 +559,184 @@ def phase_profile(card, ms_per_step):
                 for _ in range(LANES)]
     table = make_code_table([code])
     batch, _ = run(make_batch(LANES, calldata=calldata), table, max_steps=LOOP_STEPS)
+    return profile_steps("profile", lambda: run(batch, table, max_steps=LOOP_STEPS),
+                         LOOP_STEPS, card, ms_per_step)
+
+
+def second_wave_seed(codes, n):
+    """The reseed delta of the second wave: the same stripes, calldata
+    drawn from random.Random(WAVE_STRIPES + k), no value, balance or
+    storage (the explorer's first-wave environment)."""
+    import numpy as np
+
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+
+    code_ids, calldata, _ = wave.wave_inputs(codes, WAVE_STRIPES, WAVE_LANES_PER_STRIPE,
+                                             seed=WAVE_STRIPES)
+    cd = np.zeros((n, 128), np.uint8)
+    for i, data in enumerate(calldata):
+        cd[i, :len(data)] = np.frombuffer(data, np.uint8)
+    cds = np.array([len(d) for d in calldata], np.int32)
+    words = np.zeros((n, SLOT_W), np.uint32)
+    slab = np.zeros((n, 1, SLOT_W), np.uint32)
+    return (code_ids, cd, cds, words, words, slab, slab, np.zeros(n, np.int32),
+            np.zeros(n, bool))
+
+
+def sym_fields(symb):
+    """(name, tensor) of every field of a SymBatch, its StateBatch's too."""
+    return ([(f"base.{k}", t) for k, t in zip(symb.base._fields, symb.base)]
+            + list(zip(symb._fields[1:], symb[1:])))
+
+
+def overflowed_lanes(symb, table, want):
+    """Lanes whose arena row was dropped past ARENA_CAP at some step, from
+    a rerun of the wave from `symb` that counts them (one extra launch
+    per step, outside any timed run); the rerun must give `want`."""
+    import torch
+
+    from mythril_tpu_torch.laser.batch import symbolic as sym
+
+    dropped = torch.zeros(symb.base.pc.shape[0], dtype=torch.bool, device="cuda")
+    append = sym._arena_append
+
+    def counting_append(symb_, mk_row, columns):
+        ok, node_tid = append(symb_, mk_row, columns)
+        dropped.bitwise_or_(mk_row & ~ok)
+        return ok, node_tid
+
+    sym._arena_append = counting_append
+    try:
+        again, _, _ = sym.sym_run(symb, table, max_steps=WAVE_MAX_STEPS)
+    finally:
+        sym._arena_append = append
+    differ = [name for (name, x), (_, y) in zip(sym_fields(again), sym_fields(want))
+              if not torch.equal(x, y)]
+    if differ:
+        raise SystemExit(f"a rerun of the wave differs in {differ}")
+    return int(dropped.sum())
+
+
+def phase_wave(card):
+    """The symbolic shadow wave at the explorer's full width."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.laser.batch import symbolic as sym
+    from mythril_tpu_torch.laser.batch.arena import ArenaView
+    from mythril_tpu_torch.ops import keccak_cuda, slot_write
+    from mythril_tpu_torch.support import hostsync
+
+    symb, table = wave.make_wave(WAVE_STRIPES, WAVE_LANES_PER_STRIPE)
+    n = symb.base.pc.shape[0]
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    mid, cold_steps, _ = sym.sym_run(symb, table, max_steps=WAVE_COLD_STEPS)
+    sync()
+    cold_ms = (time.perf_counter() - t0) / cold_steps * 1e3
+    log(f"[wave] {n} lanes ({WAVE_STRIPES} stripes x {WAVE_LANES_PER_STRIPE}, 13 "
+        f"contracts): cold first {cold_steps} steps {cold_ms:.3f} ms/step on {card}")
+
+    keccak_cuda.LAUNCHES = 0
+    slot_write.LAUNCHES = 0
+    hostsync.COUNT = 0
+    t0 = time.perf_counter()
+    out, steps, active = sym.sym_run(symb, table, max_steps=WAVE_MAX_STEPS)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"keccak_f1600": keccak_cuda.LAUNCHES, "slot_write": slot_write.LAUNCHES}
+    syncs = hostsync.COUNT
+    overflowed = overflowed_lanes(symb, table, out)
+    active = int(active)
+    status = np.bincount(out.base.status.cpu().numpy(), minlength=11).tolist()
+    log(f"[wave] {n} lanes x {steps} steps: {wall:.3f} s, {wall / steps * 1e3:.3f} "
+        f"ms/step, {active} active lane-steps ({active / wall:,.0f}/s), {syncs / steps:.2f} "
+        f"host syncs/step, {launches['keccak_f1600']} keccak_f1600 launches, "
+        f"{launches['slot_write']} slot_write launches ({launches['slot_write'] / steps:.2f}"
+        f"/step) on {card}")
+    log(f"[wave] ar_count {int(out.ar_count)} of {sym.ARENA_CAP}, {overflowed} lanes "
+        f"overflowed the arena, {int(out.ev_cnt.sum())} events banked "
+        f"({int((out.ev_overflow != 0).sum())} lanes dropped one), status counts {status}")
+    for name, count in launches.items():
+        if count == 0:
+            raise SystemExit(f"the symbolic wave never launched {name}")
+
+    # the first view pays the pinned host buffers' allocation; the
+    # second reuses them from PyTorch's caching host allocator
+    view_ms = []
+    for _ in range(2):
         t0 = time.perf_counter()
-        run(batch, table, max_steps=LOOP_STEPS)
-        sync()
-        window_ms = (time.perf_counter() - t0) / LOOP_STEPS * 1e3
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    if not kernels:
-        log("[profile] the profiler recorded no device activity: not measured")
-        return None
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    per_step_ms = busy_us / LOOP_STEPS / 1e3
-    log(f"[profile] {LOOP_STEPS} steps: {len(kernels) / LOOP_STEPS:.1f} CUDA "
-        f"kernels/step, device busy {per_step_ms:.3f} ms/step of {window_ms:.3f} "
-        f"ms/step wall in the same profiled window (idle share "
-        f"{1 - per_step_ms / window_ms:.3f}; unprofiled {ms_per_step:.3f} ms/step) "
-        f"on {card}")
-    for name, us in top:
-        log(f"  {us / busy_us:6.1%}  {name[:100]}")
-    return per_step_ms
+        view = ArenaView(out)
+        view_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[wave] ArenaView readback {view_ms[0]:.3f} ms first, {view_ms[1]:.3f} ms "
+        f"second (two host syncs each), {view.bytes_fetched} B fetched of "
+        f"{view.bytes_full} B full on {card}")
+
+    prof_in = sym.clone_sym_batch(mid)
+    profile_steps("wave profile",
+                  lambda: sym.sym_run_inplace(prof_in, table, max_steps=WAVE_PROFILE_STEPS),
+                  WAVE_PROFILE_STEPS, card, wall / steps * 1e3)
+    del prof_in, mid
+
+    # the next wave in the spent wave's buffers, held to a fresh batch
+    delta = second_wave_seed(wave.load_contracts(), n)
+    t0 = time.perf_counter()
+    wave2 = sym.reseed_wave_inplace(out, *delta)
+    sync()
+    reseed_ms = (time.perf_counter() - t0) * 1e3
+    fresh, _ = wave.make_wave(WAVE_STRIPES, WAVE_LANES_PER_STRIPE, seed=WAVE_STRIPES)
+    differ = [name for (name, x), (_, y) in zip(sym_fields(wave2), sym_fields(fresh))
+              if not torch.equal(x, y)]
+    if differ:
+        raise SystemExit(f"the reseeded wave differs from a fresh batch in {differ}")
+    del fresh
+    t0 = time.perf_counter()
+    _, steps2, active2 = sym.sym_run_inplace(wave2, table, max_steps=WAVE_MAX_STEPS)
+    sync()
+    wall2 = time.perf_counter() - t0
+    log(f"[wave] reseed_wave_inplace {reseed_ms:.3f} ms, equal to a fresh batch in every "
+        f"field; second wave {steps2} steps, {wall2:.3f} s, {wall2 / steps2 * 1e3:.3f} "
+        f"ms/step, {int(active2) / wall2:,.0f} active lane-steps/s on {card}")
+    return dict(launches=launches, wall=wall, steps=steps)
+
+
+def phase_sym_parity():
+    """The card's symbolic wave against the JAX package's pinned digests
+    and against a CPU run."""
+    import numpy as np
+
+    from mythril_tpu_torch.interop import symbatch_to_numpy
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.laser.batch.symbolic import sym_run
+
+    pinned = wave.load_pinned()
+    settings = pinned["settings"]
+    if settings != wave.PIN_SETTINGS:
+        raise SystemExit(f"pinned digests were taken at {settings}")
+    symb, table = wave.make_wave(settings["stripes"], settings["lanes_per_stripe"])
+    out, steps, active = sym_run(symb, table, max_steps=settings["max_steps"])
+    digests = wave.field_digests(symbatch_to_numpy(out))
+    bad = sorted(k for k, v in pinned["digests"].items() if digests.get(k) != v)
+    if bad or (steps, int(active)) != (pinned["steps"], pinned["active_lane_steps"]):
+        raise SystemExit(f"the pinned wave on the card differs from the JAX package's "
+                         f"digests in {bad} (steps {steps}, active {int(active)})")
+    log(f"[parity] pinned {symb.base.pc.shape[0]}-lane wave: {steps} steps, all "
+        f"{len(digests)} SymBatch fields hash to the JAX package's digests")
+
+    lanes = PARITY_STRIPES * WAVE_LANES_PER_STRIPE
+    card_out = symbatch_to_numpy(sym_run(*wave.make_wave(
+        PARITY_STRIPES, WAVE_LANES_PER_STRIPE), max_steps=WAVE_MAX_STEPS)[0])
+    cpu_out = symbatch_to_numpy(sym_run(*wave.make_wave(
+        PARITY_STRIPES, WAVE_LANES_PER_STRIPE, device="cpu"), max_steps=WAVE_MAX_STEPS)[0])
+    got = list(card_out.base) + list(card_out[1:])
+    want = list(cpu_out.base) + list(cpu_out[1:])
+    names = [f"base.{k}" for k in card_out.base._fields] + list(card_out._fields[1:])
+    differ = [name for name, x, y in zip(names, got, want) if not np.array_equal(x, y)]
+    if differ:
+        raise SystemExit(f"the {lanes}-lane wave on the card differs from the CPU in {differ}")
+    log(f"[parity] {lanes}-lane wave: the card equals a device='cpu' run in every field, "
+        f"arena included")
 
 
 def phase_bignum(card):
@@ -517,6 +868,58 @@ def ab_host_reads(card):
     log(json.dumps({"card": card, "ab_host_reads": results}))
 
 
+def ab_windows(card):
+    """The full-width wave with the shadow's per-lane memory windows (as
+    shipped) against the full-width path forced on every SHA3 and copy
+    step (the JAX kernel's [N, mem_cap] masks), in the order A B B A: each
+    visit times one unprofiled wave and profiles a second whole wave, and
+    must give the first visit's result."""
+    import importlib
+
+    import torch
+
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.laser.batch import symbolic as sym
+
+    stepmod = importlib.import_module("mythril_tpu_torch.laser.batch.step")
+    present = stepmod._present
+
+    def full_width(op, ex, flag=None):
+        return present(op, ex, flag) | {stepmod.FLAG}
+
+    variants = {"windows": present, "full width": full_width}
+    symb, table = wave.make_wave(WAVE_STRIPES, WAVE_LANES_PER_STRIPE)
+    sym.sym_run(symb, table, max_steps=WAVE_COLD_STEPS)
+    sync()
+    ref = None
+    results = {name: {"ms_per_step": [], "busy_ms_per_step": [], "kernels_per_step": []}
+               for name in variants}
+    for name in list(variants) + list(variants)[::-1]:
+        stepmod._present = variants[name]
+        try:
+            t0 = time.perf_counter()
+            out, steps, _ = sym.sym_run(symb, table, max_steps=WAVE_MAX_STEPS)
+            sync()
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            busy, kernels = profile_steps(
+                f"ab {name}", lambda: sym.sym_run(symb, table, max_steps=WAVE_MAX_STEPS),
+                steps, card, ms)
+        finally:
+            stepmod._present = present
+        if ref is None:
+            ref = out
+        elif not all(torch.equal(x, y) for (_, x), (_, y) in zip(sym_fields(out),
+                                                                sym_fields(ref))):
+            raise SystemExit(f"{name}: the wave differs from the first visit's")
+        del out
+        r = results[name]
+        r["ms_per_step"].append(ms)
+        r["busy_ms_per_step"].append(busy)
+        r["kernels_per_step"].append(kernels)
+        r["steps"] = steps
+    log(json.dumps({"card": card, "ab_windows": results}))
+
+
 def main() -> int:
     if not (ROOT / "mythril_tpu_torch" / "__init__.py").exists():
         print("chip_smoke.py: run from a checkout of the repository", file=sys.stderr)
@@ -534,7 +937,10 @@ def main() -> int:
     if sys.argv[1:] == ["--ab-host-reads"]:
         ab_host_reads(card)
         return 0
-    kern = phase_kernel(card)
+    if sys.argv[1:] == ["--ab-windows"]:
+        ab_windows(card)
+        return 0
+    kern = {"keccak_f1600": phase_kernel(card), "slot_write": phase_slot_write(card)}
     sync()
     main_path = phase_main_path(card)
     sync()
@@ -542,24 +948,36 @@ def main() -> int:
     sync()
     phase_bignum(card)
     sync()
+    sym_wave = phase_wave(card)
+    sync()
+    phase_sym_parity()
+    sync()
     phase_vmtests()
     sync()
 
+    where = {
+        "keccak_f1600": ("mythril_tpu_torch/csrc/keccak_f.cu",
+                         "mythril_tpu/ops/keccak_pallas.py:44"),
+        "slot_write": ("mythril_tpu_torch/csrc/slot_write.cu",
+                       "tools/pallas_stack_probe.py:62"),
+    }
     report = {"kernels": [{
-        "name": "keccak_f1600",
+        "name": name,
         "route": "cuda",
-        "source": "mythril_tpu_torch/csrc/keccak_f.cu",
-        "replaces": "mythril_tpu/ops/keccak_pallas.py:44",
-        "launches": main_path["launches"],
-        "mismatches": kern["mismatches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["kernel_ms"],
-        "kernel_ms": kern["kernel_ms"],
-        "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"],
-        "library_ms": None,
-    }]}
+        "source": where[name][0],
+        "replaces": where[name][1],
+        "launches": main_path["launches"][name],
+        "launches_symbolic_wave": sym_wave["launches"][name],
+        "mismatches": k["mismatches"],
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["kernel_ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": k.get("library_ms"),
+        "quarter_masks_off_ms": k.get("quarter_masks_off_ms"),
+        "quarter_masks_off_bound_ms": k.get("quarter_masks_off_bound_ms"),
+    } for name, k in kern.items()]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

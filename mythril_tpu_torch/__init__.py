@@ -6,11 +6,14 @@ never jax. Entry points build their tensors on the card unless the
 caller passes `device="cpu"`:
 
 - `laser.batch.make_batch` / `make_code_table` / `run`;
+- `laser.batch.symbolic.sym_run` / `reseed_wave` over
+  `laser.symbolic_wave.make_wave`, read back by `laser.batch.arena.ArenaView`;
 - `laser.conformance.run_cases` (VMTests replay);
 - `ops.keccak.keccak256`.
 
-The one hand-written kernel so far is keccak-f[1600] (csrc/keccak_f.cu,
-bound in ops/keccak_cuda.py), built with nvcc at first use.
+The hand-written kernels, built with nvcc at first use, are keccak-f[1600]
+(csrc/keccak_f.cu, bound in ops/keccak_cuda.py) and the per-lane slot
+write (csrc/slot_write.cu, bound in ops/slot_write.py).
 """
 
 __version__ = "0.1.0"

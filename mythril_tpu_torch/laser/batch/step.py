@@ -16,7 +16,9 @@ bit for bit. What changes is how the work is scheduled:
 - *write in place.* The stack, memory, storage journal, branch journal
   and coverage bitmap are updated by scattering each lane's one written
   slot (or window) instead of a `where` over the whole buffer (at 16384
-  lanes the stack alone is 134 MB); CALLDATACOPY/CODECOPY write the
+  lanes the stack alone is 134 MB). The slot writes go through
+  `ops.slot_write`, one kernel launch each on the card (the stack's
+  result and SWAP slots share one); CALLDATACOPY/CODECOPY write the
   whole memory in place, as the JAX step does. `step` therefore updates
   those buffers of the batch it is given; `run` copies its input once.
 - *fixed loop bounds.* SHA3 absorbs SHA_MAX_BLOCKS blocks, masked per
@@ -47,6 +49,7 @@ from mythril_tpu_torch.laser.batch.state import (
 )
 from mythril_tpu_torch.ops import keccak_cuda, u256
 from mythril_tpu_torch.ops.keccak import absorb_lanes, squeeze_bytes
+from mythril_tpu_torch.ops.slot_write import slot_write
 from mythril_tpu_torch.support import hostsync
 from mythril_tpu_torch.support.opcodes import OPCODES
 
@@ -138,10 +141,19 @@ def _meta(device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _present(op, ex) -> frozenset:
-    """Opcodes that at least one executing lane runs this step."""
-    counts = torch.bincount(torch.where(ex, op, 256), minlength=257)
-    return frozenset(i for i, c in enumerate(hostsync.read(counts[:256])) if c)
+#: a key of the presence set past the opcodes: the caller's `flag` holds
+#: on some lane
+FLAG = 256
+
+
+def _present(op, ex, flag=None) -> frozenset:
+    """Opcodes that at least one executing lane runs this step, and FLAG
+    where `flag` (bool[N], optional) holds on some lane: one host read."""
+    keys = torch.where(ex, op, FLAG + 1)
+    if flag is not None:
+        keys = torch.cat([keys, torch.where(flag, FLAG, FLAG + 1)])
+    counts = torch.bincount(keys, minlength=FLAG + 2)
+    return frozenset(i for i, c in enumerate(hostsync.read(counts[:FLAG + 1])) if c)
 
 
 # ---------------------------------------------------------------------------
@@ -196,24 +208,21 @@ def _lane_word(lo32):
     return word
 
 
-def _scatter_rows(buf, idx, mask, val):
-    """buf[lane, idx[lane]] = val[lane] where mask[lane], in place, one
-    slot per lane (idx already clamped into range)."""
-    lanes = torch.arange(buf.shape[0], device=buf.device)
-    cur = buf[lanes, idx]
-    buf[lanes, idx] = _m(mask, val, cur)
-
-
 BIGOFF = 1 << 29  # stands in for any offset/len >= 2**31
 
 
 def step(batch: StateBatch, code: CodeTable,
-         track_coverage: bool = True) -> StateBatch:
+         track_coverage: bool = True, present: frozenset = None) -> StateBatch:
     """Execute one instruction on every live lane.
 
     Updates `batch.stack`, `mem`, `storage_keys`, `storage_vals`,
     `pc_seen`, `br_pc` and `br_taken` in place and returns the batch
-    with its other fields replaced."""
+    with its other fields replaced.
+
+    `present` is the set of opcodes that gates the handlers. None reads
+    it from the card (`_present`, one host read). A caller that has read
+    it already (the symbolic step) passes it; any superset of the
+    opcodes executing lanes run gives the same result."""
     n = batch.pc.shape[0]
     dev = batch.pc.device
     mem_cap = batch.mem.shape[1]
@@ -262,7 +271,8 @@ def step(batch: StateBatch, code: CodeTable,
     stack_err = live & valid & supported & (underflow | overflow)
     ex = (live & valid & supported & ~stack_err & ~cap_degrade
           & (op != INVALID_OP))  # executing
-    present = _present(op, ex)
+    if present is None:
+        present = _present(op, ex)
 
     def on(*ops):
         return any(o in present for o in ops)
@@ -646,8 +656,8 @@ def step(batch: StateBatch, code: CodeTable,
         full = sstore_mask & ~any_hit & (scnt >= s_cap)
         write = sstore_mask & ~full
         slot = slot.clamp(0, s_cap - 1)
-        _scatter_rows(skeys, slot, write, a)
-        _scatter_rows(svals, slot, write, b)
+        slot_write(skeys, slot, write, a)
+        slot_write(svals, slot, write, b)
         scnt = torch.where(write & ~any_hit, scnt + 1, scnt)
         status = torch.where(full, Status.ERR_MEM, status)
 
@@ -672,9 +682,8 @@ def step(batch: StateBatch, code: CodeTable,
             torch.where(rr_len_big, BIGOFF, rr_len_i), msize, status)
         ret_offset = torch.where(rr_ok, off_i, ret_offset)
         ret_len = torch.where(rr_ok, rr_len_i, ret_len)
-        status = torch.where(
-            rr_ok, torch.where(op == RETURN, Status.RETURNED, Status.REVERTED),
-            status)
+        status = torch.where(rr_ok & (op == RETURN), Status.RETURNED, status)
+        status = torch.where(rr_ok & (op != RETURN), Status.REVERTED, status)
 
     # ---- jumps + pc ------------------------------------------------------
     jump_mask = ex & (op == JUMP)
@@ -697,13 +706,15 @@ def step(batch: StateBatch, code: CodeTable,
     # gas, so a host engine can re-execute it
     interrupted = ex & ((status == Status.UNSUPPORTED) | (status == Status.ERR_MEM))
     effective = ex & ~interrupted
-    stack = batch.stack
+    # one launch writes the result slot and SWAP's deep slot; the result
+    # slot is the second write, so it wins a tie, as in the JAX kernel's
+    # nested select
+    res_write = (res_idx, res["mask"] & effective, res["val"])
     if on(*SWAP_OPS):
         swap_idx = (batch.sp - 1 - swap_n).clamp(0, stack_cap - 1).long()
-        _scatter_rows(stack, swap_idx, swap_mask & ~interrupted, a)
-    # the result slot is written after SWAP's deep slot: it wins a tie,
-    # as in the JAX kernel's nested select
-    _scatter_rows(stack, res_idx, res["mask"] & effective, res["val"])
+        slot_write(batch.stack, swap_idx, swap_mask & ~interrupted, a, *res_write)
+    else:
+        slot_write(batch.stack, *res_write)
     sp = torch.where(effective, batch.sp + net_sp, batch.sp)
 
     # ---- gas (static bounds from the metadata row) -----------------------
@@ -719,8 +730,8 @@ def step(batch: StateBatch, code: CodeTable,
         br_cap = batch.br_pc.shape[1]
         br_slot = br_cnt.clamp(0, br_cap - 1).long()
         record = jumpi_mask & (br_cnt < br_cap)
-        _scatter_rows(batch.br_pc, br_slot, record, batch.pc)
-        _scatter_rows(batch.br_taken, br_slot, record, taken.to(torch.uint8))
+        slot_write(batch.br_pc, br_slot, record, batch.pc)
+        slot_write(batch.br_taken, br_slot, record, taken.to(torch.uint8))
         br_cnt = br_cnt + record.to(torch.int32)
 
     # ---- coverage bitmap: this step's pc for every executing lane --------
@@ -729,7 +740,7 @@ def step(batch: StateBatch, code: CodeTable,
         # bit 31 is the int32's sign bit: the same bit pattern as uint32
         bit = torch.ones_like(batch.pc) << (batch.pc % 32)
         seen = batch.pc_seen[lanes, word_idx]
-        _scatter_rows(batch.pc_seen, word_idx, ex, seen | bit)
+        slot_write(batch.pc_seen, word_idx, ex, seen | bit)
 
     return batch._replace(
         pc=pc_new,

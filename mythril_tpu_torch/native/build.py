@@ -1,10 +1,11 @@
 """Build the port's CUDA sources into shared libraries, at first use.
 
 Each `csrc/<name>.cu` exposes a plain C entry point and is compiled by
-nvcc into `_build/lib<name>.so`, which is then loaded with ctypes. No
-source includes PyTorch's headers, so a build takes seconds. A library
-whose stamp matches the hash of its source and flags is reused; a failed
-build raises with nvcc's output.
+nvcc into `_build/lib<name>.so`, which is then loaded with ctypes; the
+stale sources are compiled together, one nvcc each. No source includes
+PyTorch's headers, so a build takes seconds. A library whose stamp
+matches the hash of its source and flags is reused; a failed build
+raises with nvcc's output.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
@@ -60,33 +61,48 @@ def is_built() -> bool:
     return all(_fresh(src.stem) for src in CSRC.glob("*.cu"))
 
 
-def build(stem: str, verbose: bool = False) -> float:
-    """Compile csrc/<stem>.cu unless its library is fresh. Returns the
-    wall seconds spent (0.0 when nothing was built)."""
-    if _fresh(stem):
-        return 0.0
+def build(verbose: bool = False) -> dict:
+    """Compile every csrc/*.cu whose library is stale: one nvcc per
+    source, all started together. Returns {stem: (seconds from the start
+    until its nvcc was seen to finish, nvcc's output)} for the sources it
+    compiled; `verbose` asks ptxas for its register and spill report."""
     t0 = time.perf_counter()
-    src = CSRC / f"{stem}.cu"
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD / f"lib{stem}.{os.getpid()}.tmp.so"
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print((proc.stdout + proc.stderr).rstrip())
-    os.replace(tmp, lib_path(stem))
-    (BUILD / f"lib{stem}.sha256").write_text(_digest(src))
-    return time.perf_counter() - t0
+    started = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        stem = src.stem
+        if _fresh(stem):
+            continue
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD / f"lib{stem}.{os.getpid()}.tmp.so"
+        cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(src)]
+        started[stem] = (src, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    done = {}
+    try:
+        for stem, (src, tmp, proc) in started.items():
+            report, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{report}")
+            os.replace(tmp, lib_path(stem))
+            (BUILD / f"lib{stem}.sha256").write_text(_digest(src))
+            done[stem] = (time.perf_counter() - t0, report.rstrip())
+    finally:
+        # a failed build leaves no other nvcc running
+        for _, _, proc in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return done
 
 
 def load(stem: str) -> ctypes.CDLL:
-    """The loaded library built from csrc/<stem>.cu (built if stale)."""
+    """The loaded library built from csrc/<stem>.cu (every stale source
+    is built first)."""
     lib = _LOADED.get(stem)
     if lib is None:
         if not (CSRC / f"{stem}.cu").exists():
             raise FileNotFoundError(CSRC / f"{stem}.cu")
-        build(stem)
+        build()
         lib = _LOADED[stem] = ctypes.CDLL(str(lib_path(stem)))
     return lib

@@ -1,6 +1,7 @@
 """The port stands alone: no jax, nothing of the JAX package.
 
-A subprocess imports `mythril_tpu_torch`, runs a 4-lane CPU `run`, and
+A subprocess imports `mythril_tpu_torch`, runs a 4-lane CPU `run` and a
+4-lane symbolic wave (`sym_run`, `ArenaView`, `reseed_wave`), and
 checks that `jax` never entered `sys.modules` and that no module of the
 JAX package did either. A source scan finds no import of either in the
 port's files or in chip_smoke.py. Without a CUDA device, an entry point
@@ -28,6 +29,17 @@ code = bytes([0x60, 0x05, 0x60, 0x03, 0x02, 0x60, 0x00, 0x55, 0x00])
 out, steps = run(make_batch(4, device="cpu"), make_code_table([code], device="cpu"))
 assert [storage_dict(out, i) for i in range(4)] == [{0: 15}] * 4, out
 accel.probe()
+from mythril_tpu_torch.laser import symbolic_wave
+from mythril_tpu_torch.laser.batch.arena import ArenaView
+from mythril_tpu_torch.laser.batch.symbolic import reseed_wave, sym_run
+symb, table = symbolic_wave.make_wave(2, 2, device="cpu")
+out, steps, active = sym_run(symb, table, max_steps=64)
+view = ArenaView(out)
+assert steps > 0 and view.count > 0, (steps, view.count)
+reseed_wave(out, *(t.numpy() for t in (symb.base.code_id, symb.base.calldata,
+    symb.base.calldatasize, symb.base.callvalue, symb.base.balance,
+    symb.base.storage_keys, symb.base.storage_vals, symb.base.storage_cnt)),
+    symb.base.storage_cnt.numpy() > 0)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "mythril_tpu" or m.startswith("mythril_tpu."))
@@ -73,12 +85,17 @@ def test_forbidden_pattern_catches_what_it_must():
 def test_entry_points_without_device_raise_where_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from mythril_tpu_torch import interop
+    from mythril_tpu_torch.laser import symbolic_wave
     from mythril_tpu_torch.laser.batch import make_batch, make_code_table
     from mythril_tpu_torch.laser.conformance import run_cases
     from mythril_tpu_torch.ops.keccak import keccak256
 
+    wave_np = interop.symbatch_to_numpy(symbolic_wave.make_wave(1, 2, device="cpu")[0])
     for call in (lambda: make_batch(2), lambda: make_code_table([b"\x00"]),
-                 lambda: run_cases([]), lambda: keccak256(b"")):
+                 lambda: run_cases([]), lambda: keccak256(b""),
+                 lambda: symbolic_wave.make_wave(1, 2),
+                 lambda: interop.symbatch_from_numpy(wave_np)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

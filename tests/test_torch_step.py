@@ -27,7 +27,7 @@ from mythril_tpu.laser.batch.state import make_batch as jax_make_batch
 from mythril_tpu.laser.batch.state import make_code_table as jax_make_code_table
 from mythril_tpu_torch import interop
 from mythril_tpu_torch.laser.batch.run import run as port_run
-from mythril_tpu_torch.laser.batch.state import Status, storage_dict
+from mythril_tpu_torch.laser.batch.state import TORCH_DTYPES, Status, storage_dict
 from mythril_tpu_torch.support.keccak import keccak256_int
 
 # small tensors: torch's intra-op threads would only contend with the
@@ -305,6 +305,16 @@ def test_phases_forced_open_change_nothing(mixed, monkeypatch):
         max_steps=MAX_STEPS)
     assert steps == psteps
     assert_fields_equal(interop.batch_to_numpy(forced), port)
+
+
+def test_run_keeps_every_field_dtype():
+    """The port's own tensors keep the dtypes of `state.TORCH_DTYPES`
+    through every handler (interop would hide a drift: it converts)."""
+    fields, table = _inputs(LANES[SLICES["batch_vm"]], CODE_CAP)
+    final, _ = port_run(interop.batch_from_numpy(fields, device="cpu"),
+                        interop.code_table_from_numpy(table, device="cpu"),
+                        max_steps=MAX_STEPS)
+    assert {n: t.dtype for n, t in zip(final._fields, final)} == TORCH_DTYPES
 
 
 def test_run_leaves_its_input_batch_unchanged():
