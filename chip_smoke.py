@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (mythril_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels         # device, build, the kernel
+                                            # phases and the wrappers' host cost
     python3 chip_smoke.py --ab-host-reads   # device, build, then only the
                                             # A/B of the u256 loops' host read
     python3 chip_smoke.py --ab-windows      # device, build, then only the
@@ -15,27 +17,38 @@ non-zero (nothing is caught):
    (median of 1000), which sets the pace of a host-bound step;
 2. build: compile every csrc/*.cu with nvcc for sm_90a, one nvcc per
    source, all started together (seconds and ptxas report printed);
-3. kernels: keccak-f[1600] on 16384 seeded random states, bit-equal to
-   the plain PyTorch version on the same tensors; keccak256 of b"" and of
-   a 64-byte mapping key on the card equal to the pure-Python oracle;
-   kernel time (CUDA events around a CUDA-graph replay of 50 launches,
-   median of 25) and plain time (median of 25 eager calls) beside the
-   bound, the compiled kernel's SASS instruction count, and the kernel's
-   time at 4x and 16x the main path's n. Then slot_write, bit-equal to
-   its plain version on seeded [16384, 128, 16] int32 stacks with a
-   quarter of the masks off, on [16384, 12] int64 and [16384, 64] uint8
-   buffers, with two writes per lane on one slot and with out-of-range
-   indices; its graph-replay time, its bound, its plain version's time
-   and `Tensor.scatter_`'s, all with every mask set (where scatter_
-   computes the same function), and its time and bound with a quarter
-   of the masks off;
+3. kernels, each held bit for bit against its plain PyTorch version on
+   the same tensors, then timed (CUDA events around a CUDA-graph replay
+   of 50 launches, median of 25) beside its bound and its plain
+   version's time (eager calls):
+   - keccak_f1600 on 16384 seeded random states; keccak256 of b"" and of
+     a 64-byte mapping key on the card equal to the pure-Python oracle;
+     the compiled kernel's SASS instruction count, and its time at 4x
+     and 16x the main path's n;
+   - keccak_sponge on 16384 lanes of 4096 B: random lengths 0-1087 at
+     unaligned offsets, windows ending at the row's end, length 0 at an
+     offset far past the row or negative, a quarter of `ok` off; eight
+     lanes against the oracle; timed at the main path's two SHA3 shapes
+     (64 B, one block; 320 B, three blocks; every lane ok) and on the
+     random lengths;
+   - slot_write on seeded [16384, 128, 16] int32 stacks with a quarter of
+     the masks off, on [16384, 12] int64 and [16384, 64] uint8 buffers,
+     with two writes per lane on one slot and with out-of-range indices;
+     its time, bound, plain time and `Tensor.scatter_`'s with every mask
+     set (where scatter_ computes the same function), and its time and
+     bound with a quarter of the masks off. Then slot_write_many on
+     seven mixed uint8/int32/int64 tables, on the symbolic step's 8
+     evidence banks and on the storage journal's keys and values, the
+     last two then timed against one single-table launch per table;
+   - host: microseconds per eager call of each wrapper (no synchronize
+     inside the timed calls);
 4. main path: after one cold loop iteration (42 steps, timed apart),
    16384 lanes x 256 steps of the demo loop (calldata ->
    arithmetic -> storage -> loop) extended with a Solidity mapping-slot
    hash (SHA3 over 64 bytes, SLOAD/SSTORE of that slot) and a 3-block
    SHA3 over 320 bytes of calldata copied to memory, through
-   make_code_table / make_batch / run on the card. The SHA3 phase must
-   have launched keccak_f1600 and the stack write slot_write, sampled
+   make_code_table / make_batch / run on the card. The path must have
+   launched keccak_sponge, slot_write and slot_write_many, sampled
    lanes' storage must equal values computed in Python with the port's
    keccak oracle, and the first 128 lanes must equal, field by field, a
    device="cpu" run of those lanes;
@@ -43,7 +56,7 @@ non-zero (nothing is caught):
    lanes as 512 stripes of 32 over the 13 vendored contracts
    (laser/symbolic_wave.py), through sym_run for up to 512 steps after a
    cold pass of 64 steps timed apart: wall, ms/step, active lane-steps/s,
-   host syncs/step, both kernels' launches, arena fill, banked events,
+   host syncs/step, the kernels' launches, arena fill, banked events,
    the ArenaView readback and a 32-step profile; an untimed rerun, which
    must give the same result, counts the lanes that overflowed the
    arena; then reseed_wave_inplace into a second wave, which must equal
@@ -102,6 +115,8 @@ HBM_BYTES_PER_S = 3.35e12
 # INT32 ALU rate: 132 SMs x 64 INT32 lanes x 1.98 GHz (the 67 TFLOP/s
 # float32 figure is 128 lanes x 2 for FMA at the same clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SPONGE_RATE, SPONGE_MAX_BLOCKS = 136, 8  # ops/keccak.py: bytes per block, blocks
+MEM_CAP = 4096  # the main path's memory per lane (state.py default)
 # keccak-f per message, in 32-bit ALU instructions with 3-input LOP3
 # (see csrc/keccak_f.cu): per round theta 20 + 10 + 50, rho 48, chi 50;
 # iota 37 over the 24 rounds
@@ -241,10 +256,11 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s wall")
 
 
-def sass_histogram():
-    """The built keccak kernel's SASS instructions by opcode (NOPs left
-    out), from cuobjdump; the kernel is straight-line code, so this is
-    what every thread issues. None where the toolkit has no cuobjdump."""
+def sass_histogram(kernel="keccak_f1600_kernel"):
+    """One built kernel's SASS instructions by opcode (NOPs left out),
+    from cuobjdump; the permutation is straight-line code, so outside the
+    tile copy's short loops this is what every thread issues. None where
+    the toolkit has no cuobjdump."""
     from mythril_tpu_torch.native import build
 
     tool = Path(build.nvcc()).parent / "cuobjdump"
@@ -252,6 +268,8 @@ def sass_histogram():
         return None
     sass = subprocess.run([str(tool), "-sass", str(build.lib_path("keccak_f"))],
                           capture_output=True, text=True, check=True, timeout=120).stdout
+    sass = next((part for part in sass.split("Function : ")[1:]
+                 if part.split(None, 1)[0].find(kernel) >= 0), "")
     counts = {}
     for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)",
                          sass):
@@ -309,12 +327,17 @@ def phase_kernel(card):
         raise SystemExit("keccak_f1600 disagrees with its plain version")
 
     mapping_key = (0xDEADBEEFDEADBEEF).to_bytes(32, "big") + (1).to_bytes(32, "big")
+    before = keccak_cuda.LAUNCHES
     for msg in (b"", mapping_key):
         digest = plain.keccak256(msg).cpu().numpy().tobytes()
         if digest != oracle.keccak256(msg):
             raise SystemExit(f"keccak256({msg.hex()}) on the card disagrees")
     sync()
-    log("[kernel] keccak256(b'') and keccak256(mapping key) equal the oracle")
+    entry_launches = keccak_cuda.LAUNCHES - before
+    if entry_launches == 0:
+        raise SystemExit("keccak256 never launched keccak_f1600")
+    log(f"[kernel] keccak256(b'') and keccak256(mapping key) equal the oracle "
+        f"({entry_launches} keccak_f1600 launches)")
 
     for _ in range(3):
         keccak_cuda.keccak_f(states)
@@ -341,17 +364,127 @@ def phase_kernel(card):
             + ", ".join(f"{k} {v}" for k, v in top))
     # the main path's n gives each SM ~4 warps; larger n shows how far
     # the gap to the bound is occupancy
-    scaling = []
+    scaling = {}
     for n in (4 * LANES, 16 * LANES):
         big = torch.tensor(
             rng.integers(0, 2**64, (n, 25), dtype=np.uint64).view(np.int64),
             device="cuda")
-        ms = graph_ms(lambda: keccak_cuda.keccak_f(big))
-        scaling.append(f"n={n}: {ms:.4f} ms, {ms / max(keccak_bounds(n)):.2f}x bound")
+        scaling[n] = (graph_ms(lambda: keccak_cuda.keccak_f(big)), max(keccak_bounds(n)))
         del big
-    log(f"[kernel] scaling: {'; '.join(scaling)} on {card}")
+    log(f"[kernel] scaling: " + "; ".join(
+        f"n={n}: {ms:.4f} ms, bound {bound:.4f} ms, {ms / bound:.2f}x bound"
+        for n, (ms, bound) in scaling.items()) + f" on {card}")
+    big_ms, big_bound = scaling[16 * LANES]
     return dict(mismatches=mismatches, max_abs_err=max_abs_err, kernel_ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                n16x_ms=big_ms, n16x_bound_ms=big_bound, launches_keccak256=entry_launches)
+
+
+def sponge_bounds(length, ok):
+    """(bytes ms, operations ms): the least time the sponge takes on these
+    lengths (host numpy): 4309 operations per absorbed block of an ok
+    lane, against each hashed byte read once, off, length and ok read
+    for every lane (9 B) and a 64 B word written per ok lane."""
+    import numpy as np
+
+    hashed = length[ok & (length >= 0) & (length < SPONGE_RATE * SPONGE_MAX_BLOCKS)]
+    blocks = int(((hashed.astype(np.int64) + SPONGE_RATE) // SPONGE_RATE).sum())
+    nbytes = int(hashed.sum()) + 9 * length.shape[0] + 64 * int(ok.sum())
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            KECCAK_OPS_PER_MSG * blocks / INT32_OPS_PER_S * 1e3)
+
+
+def sponge_inputs(rng, n, cap):
+    """The equality case: random lengths 0-1087 at random (unaligned)
+    offsets, an eighth of the windows ending at `cap`, lanes of length 0
+    at an offset far past `cap` or negative, a few lengths the step never
+    hashes (1088, -1), and a quarter of `ok` off. Host numpy arrays."""
+    import numpy as np
+
+    length = rng.integers(0, SPONGE_RATE * SPONGE_MAX_BLOCKS, n).astype(np.int32)
+    off = (rng.random(n) * (cap - length + 1)).astype(np.int32)
+    kind = rng.integers(0, 64, n)
+    off = np.where(kind < 8, cap - length, off)
+    length = np.where((kind == 8) | (kind == 9), 0, length)
+    off = np.where(kind == 8, 1 << 29, np.where(kind == 9, -(1 << 31), off))
+    length = np.where(kind == 10, SPONGE_RATE * SPONGE_MAX_BLOCKS,
+                      np.where(kind == 11, -1, length))
+    ok = rng.random(n) > 0.25
+    return off.astype(np.int32), length.astype(np.int32), ok
+
+
+def phase_sponge(card):
+    """keccak_sponge against its plain version and the oracle on the
+    card, then its time at the main path's two SHA3 shapes."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.ops import keccak as plain
+    from mythril_tpu_torch.ops import keccak_cuda
+    from mythril_tpu_torch.support.keccak import keccak256_int
+
+    rng = np.random.default_rng(4)
+    n, cap = LANES, MEM_CAP
+    mem_host = rng.integers(0, 256, (n, cap), dtype=np.uint8)
+    mem = torch.tensor(mem_host, device="cuda")
+    off_h, len_h, ok_h = sponge_inputs(rng, n, cap)
+    off, length, ok = (torch.tensor(x, device="cuda") for x in (off_h, len_h, ok_h))
+    got = keccak_cuda.keccak_sponge(mem, off, length, ok)
+    want = plain.keccak_sponge_plain(mem, off, length, ok)
+    sync()
+    mismatches = int((got != want).sum())
+    max_abs_err = int((got.long() - want.long()).abs().max()) if mismatches else 0
+    log(f"[sponge] keccak_sponge on {n} lanes of {cap} B (lengths 0-1087, unaligned "
+        f"offsets, windows ending at the row's end, length 0 far past it or negative, "
+        f"{int((~ok).sum())} lanes not ok): {mismatches} mismatching limbs")
+    if mismatches:
+        raise SystemExit("keccak_sponge disagrees with its plain version")
+    host = got.cpu().numpy()
+    checked = 0
+    for lane in np.flatnonzero(ok_h & (len_h >= 0) & (len_h < SPONGE_RATE * SPONGE_MAX_BLOCKS))[:8]:
+        start = min(max(int(off_h[lane]), 0), cap)
+        data = mem_host[lane, start:start + int(len_h[lane])].tobytes()
+        word = sum(int(v) << (16 * k) for k, v in enumerate(host[lane].tolist()))
+        if word != keccak256_int(data):
+            raise SystemExit(f"keccak_sponge lane {lane}: digest differs from the oracle")
+        checked += 1
+    if (host[~ok_h] != 0).any():
+        raise SystemExit("keccak_sponge wrote a digest where ok is off")
+    log(f"[sponge] {checked} lanes equal the Python oracle; lanes outside ok are zero")
+    rand_ms = graph_ms(lambda: keccak_cuda.keccak_sponge(mem, off, length, ok))
+    rand_bytes_ms, rand_ops_ms = sponge_bounds(len_h, ok_h)
+
+    # the main path's two SHA3 shapes, every lane ok: the 64 B
+    # mapping-slot hash at 0 and the 320 B calldata hash at 0x40
+    shapes = {}
+    every = torch.ones(n, dtype=torch.bool, device="cuda")
+    for blocks, (at, nbytes) in ((1, (0, 64)), (3, (0x40, CALLDATA_BYTES))):
+        o = torch.full((n,), at, dtype=torch.int32, device="cuda")
+        ln = torch.full((n,), nbytes, dtype=torch.int32, device="cuda")
+        if not torch.equal(keccak_cuda.keccak_sponge(mem, o, ln, every),
+                           plain.keccak_sponge_plain(mem, o, ln, every)):
+            raise SystemExit(f"keccak_sponge disagrees at the {blocks}-block shape")
+        ms = graph_ms(lambda: keccak_cuda.keccak_sponge(mem, o, ln, every))
+        plain_ms = time_cuda(lambda: plain.keccak_sponge_plain(mem, o, ln, every), 5)
+        bytes_ms, ops_ms = sponge_bounds(np.full(n, nbytes, np.int32), np.ones(n, bool))
+        bound_ms = max(bytes_ms, ops_ms)
+        shapes[blocks] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        log(f"[sponge] {blocks} block(s), {nbytes} B at {at} on {n} lanes: kernel "
+            f"{ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"by {shapes[blocks]['bound_by']} (bytes {bytes_ms:.4f}, int32 ops "
+            f"{ops_ms:.4f}), {ms / bound_ms:.2f}x bound on {card}")
+    rand_bound = max(rand_bytes_ms, rand_ops_ms)
+    log(f"[sponge] the equality case (random lengths): kernel {rand_ms:.4f} ms, bound "
+        f"{rand_bound:.4f} ms by operations (bytes {rand_bytes_ms:.4f}), "
+        f"{rand_ms / rand_bound:.2f}x bound on {card}")
+    main = shapes[3]
+    return dict(mismatches=mismatches, max_abs_err=max_abs_err, kernel_ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None,
+                one_block_ms=shapes[1]["ms"], one_block_plain_ms=shapes[1]["plain_ms"],
+                one_block_bound_ms=shapes[1]["bound_ms"], random_lengths_ms=rand_ms,
+                random_lengths_bound_ms=rand_bound)
 
 
 def slot_bound_ms(n, written, w, elem_bytes):
@@ -442,10 +575,157 @@ def phase_slot_write(card):
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes; {written} lanes write: "
         f"kernel {part_ms:.4f} ms, bound {part_bound_ms:.4f} ms; two writes "
         f"{two_ms:.4f} ms on {card}")
-    return dict(mismatches=mismatches, max_abs_err=max_abs_err, kernel_ms=kernel_ms,
+    many = phase_slot_write_many(card, rng, rand)
+    return dict(mismatches=mismatches + many.pop("mismatches"),
+                max_abs_err=max(max_abs_err, many.pop("max_abs_err")), kernel_ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
                 library_ms=library_ms, quarter_masks_off_ms=part_ms,
-                quarter_masks_off_bound_ms=part_bound_ms)
+                quarter_masks_off_bound_ms=part_bound_ms, two_writes_ms=two_ms, **many)
+
+
+def bank_tables(n, make, cap=12):
+    """The symbolic step's 8 evidence banks (symbolic.py): [n, 12] int32
+    pc, kind, tid, vtid and aux, [n, 12, 16] int32 a and b, [n, 12] int64
+    gas, each with a value of its row's shape; make(shape, numpy dtype)
+    gives a tensor."""
+    import numpy as np
+
+    shapes = [((), np.int32)] * 4 + [((SLOT_W,), np.int32)] * 2 + [((), np.int32),
+                                                                    ((), np.int64)]
+    return [(make((n, cap) + row, dt), make((n,) + row, dt)) for row, dt in shapes]
+
+
+def phase_slot_write_many(card, rng, rand):
+    """slot_write_many against its plain version on mixed tables and on
+    the evidence banks and the storage journal's keys and values, then its
+    time on the last two, against one single-table launch per table (the
+    old way)."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.ops import slot_write as sw
+
+    n = LANES
+    idx = torch.tensor(rng.integers(-3, 15, n), device="cuda")
+    mask = torch.tensor(rng.random(n) > 0.25, device="cuda")
+    gathered = rand((n, 5, 3), np.int32)
+    mixed = [(rand((n, 12), np.int32), rand((n,), np.int32)),
+             (rand((n, 12, SLOT_W), np.int32), rand((n, SLOT_W), np.int32)),
+             (rand((n, 12), np.int64), rand((n,), np.int64)),
+             (rand((n, 64), np.uint8), rand((n,), np.uint8)),
+             (rand((n, 12, 8), np.uint8), rand((n, 8), np.uint8)),
+             (rand((n, 7, 3), np.int32), gathered[:, 2]),
+             (rand((n, 12, 5), np.int32), gathered[:, :, 1])]
+    got = [(b.clone(), v) for b, v in mixed]
+    want = [(b.clone(), v) for b, v in mixed]
+    sw.slot_write_many(idx, mask, got)
+    sw.slot_write_many_plain(idx, mask, want)
+    sync()
+    mismatches, max_abs_err = 0, 0
+    for (g, _), (w, _) in zip(got, want):
+        bad = int((g != w).sum())
+        if bad:
+            max_abs_err = max(max_abs_err, int((g.long() - w.long()).abs().max()))
+        mismatches += bad
+    log(f"[slot_write_many] {len(mixed)} tables (int32, int64, uint8; rows of 1, 3, 8 "
+        f"and 16 elements, strided values; indices -3..14 against 7, 12 and 64 slots, "
+        f"a quarter of the masks off): "
+        f"{mismatches} mismatching elements")
+    if mismatches:
+        raise SystemExit("slot_write_many disagrees with its plain version")
+
+    every = torch.ones(n, dtype=torch.bool, device="cuda")
+    out = {}
+    shapes = {
+        "banks": (bank_tables(n, rand), torch.tensor(rng.integers(0, 12, n), device="cuda")),
+        "skeys_svals": ([(rand((n, 64, SLOT_W), np.int32), rand((n, SLOT_W), np.int32))
+                         for _ in range(2)],
+                        torch.tensor(rng.integers(0, 64, n), device="cuda")),
+    }
+    for label, (tables, slot) in shapes.items():
+        got = [(b.clone(), v) for b, v in tables]
+        want = [(b.clone(), v) for b, v in tables]
+        sw.slot_write_many(slot, every, got)
+        sw.slot_write_many_plain(slot, every, want)
+        sync()
+        bad = sum(int((g != w).sum()) for (g, _), (w, _) in zip(got, want))
+        if bad:
+            max_abs_err = max(max_abs_err, max(int((g.long() - w.long()).abs().max())
+                                               for (g, _), (w, _) in zip(got, want)))
+        mismatches += bad
+        del got, want
+        log(f"[slot_write_many] {label}, {len(tables)} tables: {bad} mismatching elements")
+        if bad:
+            raise SystemExit(f"slot_write_many disagrees with its plain version on {label}")
+        many_ms = graph_ms(lambda: sw.slot_write_many(slot, every, tables))
+
+        def separate():
+            for buf, val in tables:
+                sw.slot_write(buf, slot, every, val)
+
+        separate_ms = graph_ms(separate)
+        sw.slot_write_many_plain(slot, every, tables)
+        plain_ms = time_cuda(lambda: sw.slot_write_many_plain(slot, every, tables), 25)
+        nbytes = n * 9 + sum(2 * n * b[0, 0].numel() * b.element_size() for b, _ in tables)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[label] = dict(ms=many_ms, separate_ms=separate_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, tables=len(tables))
+        log(f"[slot_write_many] {label}, {len(tables)} tables, every mask set: one launch "
+            f"{many_ms:.4f} ms ({many_ms / len(tables):.4f} ms per table), one launch per "
+            f"table {separate_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"by bytes ({nbytes} B), {many_ms / bound_ms:.2f}x bound on {card}")
+    return dict(mismatches=mismatches, max_abs_err=max_abs_err,
+                **{f"many_{label}_{k}": v for label, r in out.items() for k, v in r.items()})
+
+
+def host_cost_us(card):
+    """Host microseconds per eager call of each kernel wrapper on the main
+    path's shapes, with no synchronize inside the timed calls: median of
+    200 calls after 20 warm ones."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.ops import keccak_cuda
+    from mythril_tpu_torch.ops import slot_write as sw
+
+    n = LANES
+    rng = np.random.default_rng(5)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=getattr(torch, np.dtype(dtype).name), device="cuda")
+
+    stack = zeros((n, SLOT_CAP, SLOT_W), np.int32)
+    idx = torch.tensor(rng.integers(0, SLOT_CAP, n), device="cuda")
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    val = zeros((n, SLOT_W), np.int32)
+    states = zeros((n, 25), np.int64)
+    banks =bank_tables(n, zeros)
+    slot = idx.remainder(12)
+    mem = zeros((n, MEM_CAP), np.uint8)
+    off = torch.zeros(n, dtype=torch.int32, device="cuda")
+    ln = torch.full((n,), 64, dtype=torch.int32, device="cuda")
+    calls = {
+        "slot_write": lambda: sw.slot_write(stack, idx, mask, val),
+        "slot_write, two writes": lambda: sw.slot_write(stack, idx, mask, val, idx, mask, val),
+        "slot_write_many, 8 banks": lambda: sw.slot_write_many(slot, mask, banks),
+        "keccak_f1600": lambda: keccak_cuda.keccak_f(states),
+        "keccak_sponge": lambda: keccak_cuda.keccak_sponge(mem, off, ln, mask),
+    }
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(20):
+            fn()
+        sync()
+        times = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        sync()
+        out[name] = statistics.median(times) * 1e6
+    log(f"[host] us per eager call: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()) + f" on {card}")
+    return out
 
 
 def phase_main_path(card):
@@ -455,7 +735,6 @@ def phase_main_path(card):
     from mythril_tpu_torch.interop import batch_to_numpy
     from mythril_tpu_torch.laser.batch import make_batch, make_code_table, run
     from mythril_tpu_torch.laser.batch.state import Status, storage_dict
-    from mythril_tpu_torch.ops import keccak_cuda, slot_write
     from mythril_tpu_torch.support import hostsync
 
     body, code = program()
@@ -472,25 +751,21 @@ def phase_main_path(card):
     cold_ms = (time.perf_counter() - t0) / LOOP_STEPS * 1e3
     log(f"[main] cold: first {LOOP_STEPS} steps {cold_ms:.3f} ms/step on {card}")
 
-    keccak_cuda.LAUNCHES = 0
-    slot_write.LAUNCHES = 0
+    reset_launches()
     hostsync.COUNT = 0
     t0 = time.perf_counter()
     final, steps = run(batch, table, max_steps=STEPS)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"keccak_f1600": keccak_cuda.LAUNCHES, "slot_write": slot_write.LAUNCHES}
+    launches = read_launches()
     syncs = hostsync.COUNT
     log(f"[main] {LANES} lanes x {steps} steps: {wall:.3f} s, "
         f"{LANES * steps / wall:,.0f} transitions/s, {wall / steps * 1e3:.3f} ms/step, "
-        f"{syncs / steps:.2f} host syncs/step, {launches['keccak_f1600']} keccak_f1600 "
-        f"launches, {launches['slot_write']} slot_write launches "
-        f"({launches['slot_write'] / steps:.2f}/step) on {card}")
+        f"{syncs / steps:.2f} host syncs/step, launches {launches} "
+        f"({launches['slot_write'] / steps:.2f} slot_write/step) on {card}")
     if steps != STEPS:
         raise SystemExit(f"run stopped after {steps} of {STEPS} steps")
-    for name, count in launches.items():
-        if count == 0:
-            raise SystemExit(f"the main path never launched {name}")
+    check_path_launches("main path", launches)
     host = batch_to_numpy(final)
     if not (host.status == Status.RUNNING).all():
         raise SystemExit("lanes halted in the endless demo loop")
@@ -511,6 +786,33 @@ def phase_main_path(card):
             raise SystemExit(f"field {name}: card lanes differ from the CPU run")
     log(f"[main] first {CPU_LANES} lanes equal a device='cpu' run, every field")
     return dict(launches=launches, wall=wall, steps=steps, syncs=syncs, cold_ms=cold_ms)
+
+
+# the kernels the main path and the wave launch; keccak_f1600's
+# permutations run inside keccak_sponge there, so only keccak256 calls it
+PATH_KERNELS = ("keccak_sponge", "slot_write")
+
+
+def reset_launches():
+    from mythril_tpu_torch.ops import keccak_cuda, slot_write
+
+    keccak_cuda.LAUNCHES = keccak_cuda.SPONGE_LAUNCHES = 0
+    slot_write.LAUNCHES = slot_write.MANY_LAUNCHES = 0
+
+
+def read_launches():
+    """Launches since reset_launches(), by kernel; slot_write counts both
+    of its forms, slot_write_many the multi-table form alone."""
+    from mythril_tpu_torch.ops import keccak_cuda, slot_write
+
+    return {"keccak_f1600": keccak_cuda.LAUNCHES, "keccak_sponge": keccak_cuda.SPONGE_LAUNCHES,
+            "slot_write": slot_write.LAUNCHES, "slot_write_many": slot_write.MANY_LAUNCHES}
+
+
+def check_path_launches(path, launches):
+    for name in PATH_KERNELS + ("slot_write_many",):
+        if launches[name] == 0:
+            raise SystemExit(f"the {path} never launched {name}")
 
 
 def profile_steps(label, fn, n_steps, card, ms_per_step):
@@ -625,7 +927,6 @@ def phase_wave(card):
     from mythril_tpu_torch.laser import symbolic_wave as wave
     from mythril_tpu_torch.laser.batch import symbolic as sym
     from mythril_tpu_torch.laser.batch.arena import ArenaView
-    from mythril_tpu_torch.ops import keccak_cuda, slot_write
     from mythril_tpu_torch.support import hostsync
 
     symb, table = wave.make_wave(WAVE_STRIPES, WAVE_LANES_PER_STRIPE)
@@ -638,29 +939,25 @@ def phase_wave(card):
     log(f"[wave] {n} lanes ({WAVE_STRIPES} stripes x {WAVE_LANES_PER_STRIPE}, 13 "
         f"contracts): cold first {cold_steps} steps {cold_ms:.3f} ms/step on {card}")
 
-    keccak_cuda.LAUNCHES = 0
-    slot_write.LAUNCHES = 0
+    reset_launches()
     hostsync.COUNT = 0
     t0 = time.perf_counter()
     out, steps, active = sym.sym_run(symb, table, max_steps=WAVE_MAX_STEPS)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"keccak_f1600": keccak_cuda.LAUNCHES, "slot_write": slot_write.LAUNCHES}
+    launches = read_launches()
     syncs = hostsync.COUNT
     overflowed = overflowed_lanes(symb, table, out)
     active = int(active)
     status = np.bincount(out.base.status.cpu().numpy(), minlength=11).tolist()
     log(f"[wave] {n} lanes x {steps} steps: {wall:.3f} s, {wall / steps * 1e3:.3f} "
         f"ms/step, {active} active lane-steps ({active / wall:,.0f}/s), {syncs / steps:.2f} "
-        f"host syncs/step, {launches['keccak_f1600']} keccak_f1600 launches, "
-        f"{launches['slot_write']} slot_write launches ({launches['slot_write'] / steps:.2f}"
-        f"/step) on {card}")
+        f"host syncs/step, launches {launches} ({launches['slot_write'] / steps:.2f} "
+        f"slot_write/step) on {card}")
     log(f"[wave] ar_count {int(out.ar_count)} of {sym.ARENA_CAP}, {overflowed} lanes "
         f"overflowed the arena, {int(out.ev_cnt.sum())} events banked "
         f"({int((out.ev_overflow != 0).sum())} lanes dropped one), status counts {status}")
-    for name, count in launches.items():
-        if count == 0:
-            raise SystemExit(f"the symbolic wave never launched {name}")
+    check_path_launches("symbolic wave", launches)
 
     # the first view pays the pinned host buffers' allocation; the
     # second reuses them from PyTorch's caching host allocator
@@ -921,6 +1218,7 @@ def ab_windows(card):
 
 
 def main() -> int:
+    args = sys.argv[1:]
     if not (ROOT / "mythril_tpu_torch" / "__init__.py").exists():
         print("chip_smoke.py: run from a checkout of the repository", file=sys.stderr)
         return 2
@@ -934,14 +1232,19 @@ def main() -> int:
     kind, card = phase_device()
     phase_build()
     sync()
-    if sys.argv[1:] == ["--ab-host-reads"]:
+    if args == ["--ab-host-reads"]:
         ab_host_reads(card)
         return 0
-    if sys.argv[1:] == ["--ab-windows"]:
+    if args == ["--ab-windows"]:
         ab_windows(card)
         return 0
-    kern = {"keccak_f1600": phase_kernel(card), "slot_write": phase_slot_write(card)}
+    kern = {"keccak_f1600": phase_kernel(card), "keccak_sponge": phase_sponge(card),
+            "slot_write": phase_slot_write(card)}
     sync()
+    host_us = host_cost_us(card)
+    sync()
+    if args == ["--kernels"]:
+        return 0
     main_path = phase_main_path(card)
     sync()
     phase_profile(card, main_path["wall"] / main_path["steps"] * 1e3)
@@ -958,6 +1261,8 @@ def main() -> int:
     where = {
         "keccak_f1600": ("mythril_tpu_torch/csrc/keccak_f.cu",
                          "mythril_tpu/ops/keccak_pallas.py:44"),
+        "keccak_sponge": ("mythril_tpu_torch/csrc/keccak_f.cu",
+                          "mythril_tpu/ops/keccak_pallas.py:44"),
         "slot_write": ("mythril_tpu_torch/csrc/slot_write.cu",
                        "tools/pallas_stack_probe.py:62"),
     }
@@ -966,17 +1271,22 @@ def main() -> int:
         "route": "cuda",
         "source": where[name][0],
         "replaces": where[name][1],
+        "on_path": name in PATH_KERNELS,
         "launches": main_path["launches"][name],
         "launches_symbolic_wave": sym_wave["launches"][name],
-        "mismatches": k["mismatches"],
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["kernel_ms"],
-        "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"],
-        "library_ms": k.get("library_ms"),
-        "quarter_masks_off_ms": k.get("quarter_masks_off_ms"),
-        "quarter_masks_off_bound_ms": k.get("quarter_masks_off_bound_ms"),
+        **({"launches_many": main_path["launches"]["slot_write_many"],
+            "launches_many_symbolic_wave": sym_wave["launches"]["slot_write_many"],
+            "host_us_per_call_many": host_us["slot_write_many, 8 banks"]}
+           if name == "slot_write" else {}),
+        "mismatches": k.pop("mismatches"),
+        "max_abs_err": k.pop("max_abs_err"),
+        "ms": k.pop("kernel_ms"),
+        "plain_ms": k.pop("plain_ms"),
+        "bound_ms": k.pop("bound_ms"),
+        "bound_by": k.pop("bound_by"),
+        "library_ms": k.pop("library_ms", None),
+        "host_us_per_call": host_us[name],
+        **k,
     } for name, k in kern.items()]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

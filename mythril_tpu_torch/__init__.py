@@ -12,8 +12,10 @@ caller passes `device="cpu"`:
 - `ops.keccak.keccak256`.
 
 The hand-written kernels, built with nvcc at first use, are keccak-f[1600]
-(csrc/keccak_f.cu, bound in ops/keccak_cuda.py) and the per-lane slot
-write (csrc/slot_write.cu, bound in ops/slot_write.py).
+and the SHA3 sponge of the step (csrc/keccak_f.cu, bound in
+ops/keccak_cuda.py) and the per-lane slot write of one table or of up
+to 8 tables that share an index (csrc/slot_write.cu, bound in
+ops/slot_write.py).
 """
 
 __version__ = "0.1.0"

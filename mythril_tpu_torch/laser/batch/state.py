@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from mythril_tpu_torch.ops import u256
+from mythril_tpu_torch.ops.keccak import SPONGE_MAX_BLOCKS
 from mythril_tpu_torch.support.accel import resolve_device
 
 STACK_CAP = 128  # configurable; EVM max is 1024, real contracts stay shallow
@@ -37,7 +38,7 @@ MEM_CAP = 4096  # bytes of modelled memory per lane
 STORAGE_CAP = 64  # journal entries per lane
 CALLDATA_CAP = 512  # bytes of calldata per lane
 SHA_RATE = 136  # keccak-256 rate in bytes
-SHA_MAX_BLOCKS = 8  # absorption blocks per SHA3 on device
+SHA_MAX_BLOCKS = SPONGE_MAX_BLOCKS  # 8 absorption blocks per SHA3 on device
 HASH_CAP = SHA_MAX_BLOCKS * SHA_RATE - 1  # 1087 B of SHA3 input on device
 PC_BITMAP_WORDS = 768  # coverage bitmap words (EVM max code size 24576 / 32)
 BRANCH_CAP = 64  # recorded JUMPI decisions per lane (concolic journal)

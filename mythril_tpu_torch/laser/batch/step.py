@@ -18,12 +18,15 @@ bit for bit. What changes is how the work is scheduled:
   slot (or window) instead of a `where` over the whole buffer (at 16384
   lanes the stack alone is 134 MB). The slot writes go through
   `ops.slot_write`, one kernel launch each on the card (the stack's
-  result and SWAP slots share one); CALLDATACOPY/CODECOPY write the
+  result and SWAP slots share one, and so do the tables that share an
+  index: storage keys and values, branch pc and taken flag);
+  CALLDATACOPY/CODECOPY write the
   whole memory in place, as the JAX step does. `step` therefore updates
   those buffers of the batch it is given; `run` copies its input once.
-- *fixed loop bounds.* SHA3 absorbs SHA_MAX_BLOCKS blocks, masked per
-  lane, as the JAX step does: a bound read from the data would cost a
-  host read and measured no faster on the card (PERF.md).
+- *one sponge launch.* SHA3 hashes every lane's window in one call of
+  `ops.keccak_cuda.keccak_sponge` (one kernel launch on the card, where
+  each lane absorbs its own blocks; the plain version on the CPU absorbs
+  SPONGE_MAX_BLOCKS blocks masked per lane, as the JAX step does).
 - *uint32 by hand.* Gas sums wrap mod 2**32 explicitly (the gas fields
   are int64 holding uint32 values), int32 offsets wrap as int32, and
   every gather and scatter index is clamped and its result masked,
@@ -41,15 +44,12 @@ import torch
 
 from mythril_tpu_torch.laser.batch.state import (
     HASH_CAP,
-    SHA_MAX_BLOCKS,
-    SHA_RATE,
     CodeTable,
     StateBatch,
     Status,
 )
 from mythril_tpu_torch.ops import keccak_cuda, u256
-from mythril_tpu_torch.ops.keccak import absorb_lanes, squeeze_bytes
-from mythril_tpu_torch.ops.slot_write import slot_write
+from mythril_tpu_torch.ops.slot_write import slot_write, slot_write_many
 from mythril_tpu_torch.support import hostsync
 from mythril_tpu_torch.support.opcodes import OPCODES
 
@@ -548,30 +548,8 @@ def step(batch: StateBatch, code: CodeTable,
         sha_toobig = sha_exp_ok & (sha_len > HASH_CAP)
         sha_ok = sha_exp_ok & ~sha_toobig
 
-        # per-lane padded length in rate blocks (>= 1); lanes absorb
-        # their own number of blocks and the digest is captured when
-        # each lane's last block has been permuted
-        n_blocks = (len_i + 1 + SHA_RATE - 1) // SHA_RATE
-        last_pad = n_blocks * SHA_RATE - 1  # absolute 0x80 position
-        base = off_i.clamp(0, mem_cap)[:, None]
-        state = torch.zeros((n, 25), dtype=torch.int64, device=dev)
-        final = state
-        for blk in range(SHA_MAX_BLOCKS):
-            pos = blk * SHA_RATE + torch.arange(SHA_RATE, device=dev)[None, :]
-            block_idx = base + pos
-            inb = (pos < len_i[:, None]) & (block_idx < mem_cap)
-            raw = torch.gather(mem, 1, block_idx.clamp(0, mem_cap - 1).long())
-            raw = torch.where(inb, raw, 0)
-            # multi-rate padding: 0x01 at len, 0x80 at the final byte
-            raw = raw | torch.where(pos == len_i[:, None], 0x01, 0).to(torch.uint8)
-            raw = raw | torch.where(pos == last_pad[:, None], 0x80, 0).to(torch.uint8)
-            active_blk = (blk < n_blocks)[:, None]
-            absorbed = state.clone()
-            absorbed[:, :17] ^= absorb_lanes(raw)
-            permuted = keccak_cuda.keccak_f(absorbed)
-            state = torch.where(active_blk, permuted, state)
-            final = torch.where((n_blocks == blk + 1)[:, None], state, final)
-        put(sha_ok, u256.bytes_to_word(squeeze_bytes(final[:, :4])))
+        # one launch on the card: each lane absorbs its own blocks
+        put(sha_ok, keccak_cuda.keccak_sponge(mem, off_i, len_i, sha_ok))
         # affordable inputs beyond the device hash cap go to the host
         status = torch.where(sha_toobig, Status.UNSUPPORTED, status)
         sha_words = torch.where(sha_ok, (len_i + 31) // 32, 0).to(torch.int64)
@@ -656,8 +634,7 @@ def step(batch: StateBatch, code: CodeTable,
         full = sstore_mask & ~any_hit & (scnt >= s_cap)
         write = sstore_mask & ~full
         slot = slot.clamp(0, s_cap - 1)
-        slot_write(skeys, slot, write, a)
-        slot_write(svals, slot, write, b)
+        slot_write_many(slot, write, [(skeys, a), (svals, b)])
         scnt = torch.where(write & ~any_hit, scnt + 1, scnt)
         status = torch.where(full, Status.ERR_MEM, status)
 
@@ -730,8 +707,8 @@ def step(batch: StateBatch, code: CodeTable,
         br_cap = batch.br_pc.shape[1]
         br_slot = br_cnt.clamp(0, br_cap - 1).long()
         record = jumpi_mask & (br_cnt < br_cap)
-        slot_write(batch.br_pc, br_slot, record, batch.pc)
-        slot_write(batch.br_taken, br_slot, record, taken.to(torch.uint8))
+        slot_write_many(br_slot, record, [(batch.br_pc, batch.pc),
+                                          (batch.br_taken, taken.to(torch.uint8))])
         br_cnt = br_cnt + record.to(torch.int32)
 
     # ---- coverage bitmap: this step's pc for every executing lane --------

@@ -24,8 +24,9 @@ the concrete step (step.py):
 - *in place.* The shadow tables (stack, memory, storage and branch
   tids, the evidence banks, the arena) are updated in place: per-lane
   slot writes go through `ops.slot_write` (one kernel launch each on the
-  card), MSTORE's window is a 32-byte scatter and the arena takes its
-  rows by index. `sym_step` therefore updates the buffers of the
+  card; the tables that share an index, storage tids and the eight
+  evidence banks, share one), MSTORE's window is a 32-byte scatter and
+  the arena takes its rows by index. `sym_step` therefore updates the buffers of the
   SymBatch it is given; `sym_run` copies its input once and
   `sym_run_inplace` does not.
 - *windows, not whole rows.* The copy windows and the SHA3 taint test
@@ -52,7 +53,7 @@ import torch
 from mythril_tpu_torch.laser.batch.run import _any_running
 from mythril_tpu_torch.laser.batch.state import HASH_CAP, CodeTable, StateBatch, Status
 from mythril_tpu_torch.ops import u256
-from mythril_tpu_torch.ops.slot_write import slot_write
+from mythril_tpu_torch.ops.slot_write import slot_write, slot_write_many
 from mythril_tpu_torch.support.opcodes import OPCODES
 
 # the module (the package's `step` attribute is the function); its
@@ -476,8 +477,7 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
 
     # --- storage taints ------------------------------------------------
     if on(SSTORE):
-        slot_write(symb.sval_tid, s_slot, sstore_m, b_tid)
-        slot_write(symb.skey_tid, s_slot, sstore_m, a_tid)
+        slot_write_many(s_slot, sstore_m, [(symb.sval_tid, b_tid), (symb.skey_tid, a_tid)])
 
     # --- arena append --------------------------------------------------
     mk_row = mk_node | mk_env
@@ -605,11 +605,11 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
         # a distinct event hitting a full bank is lost evidence
         ev_overflow = torch.where(fresh & (ev_cnt >= EVENT_CAP), 1, ev_overflow).to(i32)
         ev_slot = ev_cnt.clamp(0, EVENT_CAP - 1).long()
-        for table, val in ((symb.ev_pc, pre.pc), (symb.ev_kind, kind),
-                           (symb.ev_tid, ev_tid_new), (symb.ev_vtid, ev_vtid_new),
-                           (symb.ev_a, a_field), (symb.ev_b, b_field),
-                           (symb.ev_aux, pre.br_cnt), (symb.ev_gas, gas_sat)):
-            slot_write(table, ev_slot, bank, val)
+        slot_write_many(ev_slot, bank, [
+            (symb.ev_pc, pre.pc), (symb.ev_kind, kind),
+            (symb.ev_tid, ev_tid_new), (symb.ev_vtid, ev_vtid_new),
+            (symb.ev_a, a_field), (symb.ev_b, b_field),
+            (symb.ev_aux, pre.br_cnt), (symb.ev_gas, gas_sat)])
         ev_cnt = ev_cnt + bank.to(i32)
 
     # --- RETURN window -------------------------------------------------

@@ -1,4 +1,7 @@
-"""Build the port's CUDA sources into shared libraries, at first use.
+"""Build the port's CUDA sources into shared libraries, at first use,
+and launch their entries (`on_cuda` picks kernel or plain version by
+where a wrapper's operands lie, `launch` calls an entry on PyTorch's
+current stream).
 
 Each `csrc/<name>.cu` exposes a plain C entry point and is compiled by
 nvcc into `_build/lib<name>.so`, which is then loaded with ctypes; the
@@ -20,6 +23,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -106,3 +111,32 @@ def load(stem: str) -> ctypes.CDLL:
         build()
         lib = _LOADED[stem] = ctypes.CDLL(str(lib_path(stem)))
     return lib
+
+
+def on_cuda(tensors, what: str) -> bool:
+    """True where the operands of the kernel wrapper `what` lie on one
+    CUDA device (launch the kernel), False where they lie on the CPU (run
+    the plain version); raise for a mix of devices or any other device."""
+    dev = tensors[0].get_device()
+    if any(t.get_device() != dev for t in tensors[1:]):
+        raise ValueError(f"{what} operands on {sorted({str(t.device) for t in tensors})}")
+    if tensors[0].is_cuda:
+        return True
+    if tensors[0].device.type != "cpu":
+        raise ValueError(f"{what} runs on cpu or cuda, not {tensors[0].device}")
+    return False
+
+
+def launch(fn, device: int, *args) -> None:
+    """Call the C entry `fn(*args, stream)` with PyTorch's current stream
+    on CUDA device `device` (so a CUDA graph capture or a side stream
+    sees the launch), under a device guard only where that device is not
+    the current one; raise if it returns a CUDA error."""
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    if device == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")

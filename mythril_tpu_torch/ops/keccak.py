@@ -7,9 +7,10 @@ of uint32 because a TPU has no 64-bit integers; `interop.lanes_from_lohi`
 and `lanes_to_lohi` convert. int64 shifts in PyTorch are arithmetic, so
 every right shift of a lane is masked to its low bits.
 
-`keccak_f` here is the plain version of the hand-written CUDA kernel in
-csrc/keccak_f.cu. Callers go through `ops.keccak_cuda.keccak_f`, which
-runs this function for a CPU tensor and the kernel for a CUDA tensor.
+`keccak_f` and `keccak_sponge_plain` here are the plain versions of the
+hand-written CUDA kernels in csrc/keccak_f.cu. Callers go through
+`ops.keccak_cuda.keccak_f` and `ops.keccak_cuda.keccak_sponge`, which run
+these functions for a CPU tensor and the kernels for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from mythril_tpu_torch.support.keccak import _ROT
 
 _RATE = 136
 _RATE_LANES = _RATE // 8
+#: blocks the SHA3 sponge absorbs at most: 136 * 8 - 1 = 1087 bytes
+SPONGE_MAX_BLOCKS = 8
 
 #: round constants as int64 bit patterns
 _RC = [rc - (1 << 64) if rc >> 63 else rc for rc in _RC_INT]
@@ -84,6 +87,45 @@ def squeeze_bytes(lanes):
     mask keeps each byte exact under the arithmetic right shift."""
     shifts = 8 * torch.arange(8, device=lanes.device, dtype=torch.int64)
     return ((lanes.unsqueeze(-1) >> shifts) & 0xFF).flatten(-2).to(torch.uint8)
+
+
+def keccak_sponge_plain(mem, off, length, ok):
+    """The plain version of the SHA3 sponge kernel: keccak-256 of
+    mem[lane, off:off+length] where ok[lane], as a u256 limb word
+    [N, 16] int32, zero elsewhere (the EVM step's SHA3 phase).
+
+    Every lane absorbs all SPONGE_MAX_BLOCKS blocks, masked to its own
+    count; the digest is captured when the lane's last block has been
+    permuted. Offsets are clamped to [0, C] and bytes past the row read
+    as zero, so a lane of length 0 reads nothing; a length outside
+    [0, 136 * SPONGE_MAX_BLOCKS) never captures a digest and gives zero."""
+    from mythril_tpu_torch.ops import u256
+
+    n, cap = mem.shape
+    dev = mem.device
+    # per-lane padded length in rate blocks (>= 1)
+    n_blocks = (length + 1 + _RATE - 1) // _RATE
+    last_pad = n_blocks * _RATE - 1  # absolute 0x80 position
+    base = off.clamp(0, cap)[:, None]
+    state = torch.zeros((n, 25), dtype=torch.int64, device=dev)
+    final = state
+    for blk in range(SPONGE_MAX_BLOCKS):
+        pos = blk * _RATE + torch.arange(_RATE, device=dev)[None, :]
+        block_idx = base + pos
+        inb = (pos < length[:, None]) & (block_idx < cap)
+        raw = torch.gather(mem, 1, block_idx.clamp(0, cap - 1).long())
+        raw = torch.where(inb, raw, 0)
+        # multi-rate padding: 0x01 at len, 0x80 at the final byte
+        raw = raw | torch.where(pos == length[:, None], 0x01, 0).to(torch.uint8)
+        raw = raw | torch.where(pos == last_pad[:, None], 0x80, 0).to(torch.uint8)
+        active_blk = (blk < n_blocks)[:, None]
+        absorbed = state.clone()
+        absorbed[:, :_RATE_LANES] ^= absorb_lanes(raw)
+        permuted = keccak_f(absorbed)
+        state = torch.where(active_blk, permuted, state)
+        final = torch.where((n_blocks == blk + 1)[:, None], state, final)
+    word = u256.bytes_to_word(squeeze_bytes(final[:, :4]))
+    return torch.where(ok[:, None], word, 0)
 
 
 def keccak256(msg, device=None):
