@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels         # device, build, the kernel
                                             # phases and the wrappers' host cost
+                                            # (portfolio kernels on the
+                                            # synthetic programs only)
     python3 chip_smoke.py --ab-host-reads   # device, build, then only the
                                             # A/B of the u256 loops' host read
     python3 chip_smoke.py --ab-windows      # device, build, then only the
@@ -63,13 +65,33 @@ non-zero (nothing is caught):
    a fresh batch of the same seeds, and run it;
 6. symbolic parity: the pinned 260-lane wave on the card must hash, field
    by field, to the JAX package's digests
-   (mythril_tpu_torch/laser/symbolic_wave_digests.json), and a 128-lane
+   (mythril_tpu_torch/laser/symbolic_wave_digests.json), its flip
+   frontier decoded on the card (candidates, path conditions, lowered
+   queries) must equal the JAX package's canonical digests
+   (mythril_tpu_torch/laser/flip_frontier_pinned.json), and a 128-lane
    wave on the card must equal a device="cpu" run, every field;
-7. VMTests: every vendored suite through run_cases(hybrid=False) on the
+7. flip frontier (laser/flip_frontier.py): the explorer's geometry, 13
+   contracts x 32 lanes, 68 B calldata, for 4 generations, each sym_run,
+   ArenaView, decode and candidates, lower and compile, one
+   device_solve_batch dispatch on the card (portfolio_eval for
+   enumeration and the cube fan's ranking, portfolio_sls for the search)
+   and the next wave seeded with the witnesses; per generation the
+   candidates, opaque ones, compile losses, verdicts by mode, witnesses
+   that failed validation (any fails the run), flips realized in the
+   next generation, the stages' ms and the kernels' launches. Then the
+   frontier of phase 5's 16384-lane wave in one dispatch;
+8. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
+   own programs and on synthetic ones at 32 to 2048 bits (every op, L =
+   16 to 128), each against its plain version run on CPU copies of the
+   same inputs (bit for bit; portfolio_sls at a 16-step budget, at
+   which its counter-based random streams agree step by step), timed
+   beside the bound the plain version's operation count gives and the
+   plain version's time; registers and spills from ptxas;
+9. VMTests: every vendored suite through run_cases(hybrid=False) on the
    card, name by name against the JAX package's pinned verdicts
    (mythril_tpu_torch/laser/vmtests_device_verdicts.json), with no
    mismatch and no "fail:";
-8. report: the `kernels` JSON line, then the result line.
+10. report: the `kernels` JSON line, then the result line.
 
 After 4 it also prints where a main-path step's time goes
 (torch.profiler: CUDA kernels per step, device busy share, top kernels)
@@ -109,6 +131,10 @@ WAVE_MAX_STEPS = 512
 WAVE_COLD_STEPS = 64
 WAVE_PROFILE_STEPS = 32
 PARITY_STRIPES = 4  # a 128-lane wave on the card against the CPU
+SLS_CHECK_STEPS = 16  # the step budget at which portfolio_sls is held to its plain version
+SLS_CHECK_K = (64, 320, 512)  # candidates per SLS check: the explorer's, and past one a thread
+EVAL_CHECK_K = (16, 256)  # candidates per portfolio_eval check (16: rank_impact_vars' probes)
+ENUM_K = 4096  # device_enumerate's chunk: portfolio_eval's timed shape
 
 # H100 SXM peaks (NVIDIA data sheet; the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -238,9 +264,13 @@ def phase_device():
     log(card)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"capability {torch.cuda.get_device_capability(0)} count {torch.cuda.device_count()}")
-    log(f"[device] host CPU {host_cpu()}; dispatch {dispatch_us():.2f} us per trivial "
+    DISPATCH_US[0] = dispatch_us()
+    log(f"[device] host CPU {host_cpu()}; dispatch {DISPATCH_US[0]:.2f} us per trivial "
         f"CUDA launch (median of 1000)")
     return name, card.splitlines()[0]
+
+
+BUILD_REPORTS = {}  # csrc stem -> nvcc's output (ptxas -v)
 
 
 def phase_build():
@@ -249,9 +279,9 @@ def phase_build():
     t0 = time.perf_counter()
     built = build.build(verbose=True)
     for stem, (secs, report) in built.items():
-        log(f"[build] csrc/{stem}.cu: done by {secs:.2f} s")
-        if report:
-            log(report)
+        BUILD_REPORTS[stem] = report
+        log(f"[build] csrc/{stem}.cu: done by {secs:.2f} s; ptxas (registers, spill bytes): "
+            f"{ptxas_table(report) or report or 'no report'}")
     log(f"[build] nvcc {build.nvcc()}: {len(built)} sources in parallel, "
         f"{time.perf_counter() - t0:.2f} s wall")
 
@@ -791,22 +821,26 @@ def phase_main_path(card):
 # the kernels the main path and the wave launch; keccak_f1600's
 # permutations run inside keccak_sponge there, so only keccak256 calls it
 PATH_KERNELS = ("keccak_sponge", "slot_write")
+# the flip frontier's kernels (step 3 of the main path)
+FLIP_KERNELS = ("portfolio_eval", "portfolio_sls")
 
 
 def reset_launches():
-    from mythril_tpu_torch.ops import keccak_cuda, slot_write
+    from mythril_tpu_torch.ops import keccak_cuda, portfolio_eval, portfolio_sls, slot_write
 
     keccak_cuda.LAUNCHES = keccak_cuda.SPONGE_LAUNCHES = 0
     slot_write.LAUNCHES = slot_write.MANY_LAUNCHES = 0
+    portfolio_eval.LAUNCHES = portfolio_sls.LAUNCHES = 0
 
 
 def read_launches():
     """Launches since reset_launches(), by kernel; slot_write counts both
     of its forms, slot_write_many the multi-table form alone."""
-    from mythril_tpu_torch.ops import keccak_cuda, slot_write
+    from mythril_tpu_torch.ops import keccak_cuda, portfolio_eval, portfolio_sls, slot_write
 
     return {"keccak_f1600": keccak_cuda.LAUNCHES, "keccak_sponge": keccak_cuda.SPONGE_LAUNCHES,
-            "slot_write": slot_write.LAUNCHES, "slot_write_many": slot_write.MANY_LAUNCHES}
+            "slot_write": slot_write.LAUNCHES, "slot_write_many": slot_write.MANY_LAUNCHES,
+            "portfolio_eval": portfolio_eval.LAUNCHES, "portfolio_sls": portfolio_sls.LAUNCHES}
 
 
 def check_path_launches(path, launches):
@@ -995,7 +1029,8 @@ def phase_wave(card):
     log(f"[wave] reseed_wave_inplace {reseed_ms:.3f} ms, equal to a fresh batch in every "
         f"field; second wave {steps2} steps, {wall2:.3f} s, {wall2 / steps2 * 1e3:.3f} "
         f"ms/step, {int(active2) / wall2:,.0f} active lane-steps/s on {card}")
-    return dict(launches=launches, wall=wall, steps=steps)
+    return dict(launches=launches, wall=wall, steps=steps,
+                frontier=(view, symb.base.code_id.cpu().numpy()))
 
 
 def phase_sym_parity():
@@ -1004,7 +1039,9 @@ def phase_sym_parity():
     import numpy as np
 
     from mythril_tpu_torch.interop import symbatch_to_numpy
+    from mythril_tpu_torch.laser import flip_frontier as ff
     from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.laser.batch.arena import ArenaView
     from mythril_tpu_torch.laser.batch.symbolic import sym_run
 
     pinned = wave.load_pinned()
@@ -1020,6 +1057,16 @@ def phase_sym_parity():
                          f"digests in {bad} (steps {steps}, active {int(active)})")
     log(f"[parity] pinned {symb.base.pc.shape[0]}-lane wave: {steps} steps, all "
         f"{len(digests)} SymBatch fields hash to the JAX package's digests")
+    flip_pinned = ff.load_pinned()
+    if flip_pinned["settings"] != wave.PIN_SETTINGS:
+        raise SystemExit(f"pinned frontier digests were taken at {flip_pinned['settings']}")
+    frontier = ff.pinned_wave_frontier(ArenaView(out), symb.base.code_id.cpu().numpy())
+    if frontier != {k: v for k, v in flip_pinned.items() if k != "settings"}:
+        raise SystemExit("the pinned wave's flip frontier decoded on the card differs from "
+                         "the JAX package's pinned digests")
+    log(f"[parity] pinned wave's frontier: {frontier['tried']} targets tried, "
+        f"{frontier['opaque']} opaque, {len(frontier['candidates'])} candidates whose path "
+        f"conditions and lowered queries equal the JAX package's decode (canonical digests)")
 
     lanes = PARITY_STRIPES * WAVE_LANES_PER_STRIPE
     card_out = symbatch_to_numpy(sym_run(*wave.make_wave(
@@ -1034,6 +1081,378 @@ def phase_sym_parity():
         raise SystemExit(f"the {lanes}-lane wave on the card differs from the CPU in {differ}")
     log(f"[parity] {lanes}-lane wave: the card equals a device='cpu' run in every field, "
         f"arena included")
+
+
+
+def _identifiers(mangled):
+    """The length-prefixed identifiers of an Itanium-mangled name."""
+    out, i = [], 0
+    while i < len(mangled):
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        if j > i:
+            n = int(mangled[i:j])
+            out.append(mangled[j:j + n])
+            i = j + n
+        else:
+            i += 1
+    return out
+
+
+def ptxas_table(report):
+    """{function: (registers, spill bytes)} from a ptxas -v report, the
+    mangled names cut to the kernel's (or device function's) name and
+    its limb-count template argument."""
+    out = {}
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            mangled = m.group(1)
+            parts = [w for w in _identifiers(mangled)
+                     if w.endswith("kernel") or w in ("eval_program", "udivmod")]
+            name = parts[-1] if parts else mangled[:60]
+            t = re.search(r"ILi(\d+)E", mangled)
+            name += f"<{t.group(1)}>" if t else ""
+            out[name] = [None, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def portfolio_registers():
+    """{kernel or device function <L>: (registers, spill bytes)} of
+    csrc/portfolio.cu from the build's ptxas report (None where the build
+    printed none)."""
+    return ptxas_table(BUILD_REPORTS.get("portfolio", "")) or None
+
+
+FIRST_PASS_EVALS = 192 + 2  # a first pass: the initial score, 192 steps, the final score
+DISPATCH_US = [0.0]  # host us per trivial CUDA launch, from phase_device
+
+
+def aten_ops(fn) -> int:
+    """PyTorch operator calls `fn` makes (each one kernel launch when its
+    tensors lie on the card)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def work_bound(count, io_bytes):
+    """(bound ms, bound_by) of evaluations whose work the plain version
+    counted: int32 operations over INT32_OPS_PER_S against the bytes the
+    function must move, `io_bytes` (its inputs read once, its outputs
+    written once), over HBM_BYTES_PER_S. The kernels' node-value scratch
+    is their own design, not the function's, and is not counted."""
+    ops_ms = count.get("ops", 0) / INT32_OPS_PER_S * 1e3
+    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def synthetic_programs():
+    """Programs the frontier does not give: every op of the device
+    language at 32-bit and at 512- to 2048-bit widths (L = 16, 32, 64,
+    128), from the port's own term layer."""
+    from mythril_tpu_torch.laser.smt import terms as T
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+
+    progs = []
+    for w in (32, 512, 1024, 2048):
+        x, y, z = (T.bv_var(f"chip_{w}_{n}", w) for n in "xyz")
+        c = lambda v: T.bv_const(v, w)  # noqa: E731
+        # division on a numerator of at most 64 bits: the plain version's
+        # bit-serial loop runs one step per numerator bit
+        low = (lambda t: t) if w <= 64 else (lambda t: T.zext(T.extract(63, 0, t), w - 64))
+        q = [T.eq(T.add(T.mul(x, c(3)), y), c(0x1234567)),
+             T.ult(T.udiv(low(y), c(7)), T.urem(low(z), c(1000003))),
+             T.bor(T.slt(x, z), T.sle(T.ashr(z, c(5)), T.lshr(y, c(w - 9)))),
+             T.implies(T.eq(T.bvxor(x, y), z), T.bnot(T.eq(T.shl(y, c(3)), T.bvnot(x)))),
+             T.eq(T.extract(7, 0, T.sub(x, y)), T.bv_const(0x5A, 8)),
+             T.bxor(T.eq(T.sext(T.extract(15, 0, z), w - 16), x),
+                    T.band(T.ult(c(3), y), T.eq(T.ite(T.ult(x, y), x, y), T.bvor(y, z)))),
+             T.eq(T.concat(T.extract(w - 1, w // 2, x), T.extract(w // 2 - 1, 0, y)),
+                  T.zext(T.extract(w - 9, 0, z), 8))]
+        progs.append(pf.compile_program(q))
+    return progs
+
+
+# queries that the search solves inside SLS_CHECK_STEPS at the check's
+# seed, built from the port's term layer: one a seeded lane solves before
+# the first step, others after a few steps (found with the plain version)
+def solving_programs():
+    from mythril_tpu_torch.laser.smt import terms as T
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+    from mythril_tpu_torch.laser.smt.solver.preprocess import lower
+
+    x, y = T.bv_var("chip_sx", 32), T.bv_var("chip_sy", 32)
+    s, t = T.bv_var("chip_ss", 16), T.bv_var("chip_st", 16)
+    c = lambda v: T.bv_const(v, 32)  # noqa: E731
+    queries = [
+        [T.ult(s, t), T.ult(T.bv_const(0x8000, 16), s)],
+        [T.slt(x, c(0)), T.eq(T.extract(7, 0, x), T.bv_const(0x80, 8))],
+        [T.eq(T.mul(x, c(3)), c(0x300)), T.ult(x, c(0x1000))],
+        [T.ult(x, c(1000)), T.ult(c(500), x), T.eq(T.urem(x, c(7)), c(3))],
+        [T.eq(T.sub(x, y), c(3)), T.ult(y, c(4))],
+        [T.eq(T.add(x, y), c(0x1234)), T.ult(x, c(100))],
+        [T.eq(T.lshr(x, c(4)), c(0x12))],
+    ]
+    return [pf.compile_program(lower(q)[0]) for q in queries]
+
+
+def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
+    """Both portfolio kernels held to their plain versions (run on CPU
+    copies of the same inputs) on the frontier's own programs, on
+    programs the search solves (`solving_progs`, the one-branch
+    contract's, plus `solving_programs()`) and on the synthetic ones,
+    then timed against their bounds."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+    from mythril_tpu_torch.ops import portfolio_eval as pe
+    from mythril_tpu_torch.ops import portfolio_sls as ps
+
+    rng = np.random.default_rng(4)
+    solving = list(solving_progs) + solving_programs()
+    progs = list(frontier_progs) + solving + synthetic_programs()
+
+    def rand_X(prog, K):
+        X = rng.integers(0, 1 << 16, (len(prog.var_slots), K, prog.limbs))
+        X[:, ::4, 2:] = 0
+        X[:, 1::5, :] = 0
+        for v, (_n, w) in enumerate(prog.var_slots):
+            X[v] &= np.array(pe.width_mask(w, prog.limbs))[None, :]
+        return X
+
+    # portfolio_eval: every candidate's (solved, score) on every program
+    eval_bad = eval_cases = eval_err = 0
+    for prog in progs:
+        for K in EVAL_CHECK_K:
+            X = rand_X(prog, K)
+            got = pe.portfolio_eval(*pe.program_tensors(prog, "cuda"),
+                                    torch.as_tensor(X, device="cuda"), n_nodes=prog.n_real_nodes)
+            want = pe.portfolio_eval(*pe.program_tensors(prog, "cpu"), torch.as_tensor(X),
+                                     n_nodes=prog.n_real_nodes)
+            sync()
+            eval_bad += int((got[0].cpu() != want[0]).sum() + (got[1].cpu() != want[1]).sum())
+            eval_err = max(eval_err, int((got[1].cpu().long() - want[1].long()).abs().max()))
+            eval_cases += K
+    log(f"[portfolio] portfolio_eval on {len(progs)} programs ({len(frontier_progs)} of the "
+        f"frontier; L {sorted({p.limbs for p in progs})}) x K {list(EVAL_CHECK_K)} candidates: "
+        f"{eval_bad} mismatches against the plain version on {card}")
+    # the enumeration shape on the frontier's largest program
+    prog = max(progs[:max(1, len(frontier_progs))], key=lambda p: p.n_real_nodes)
+    X = rand_X(prog, ENUM_K)
+    card_args = pe.program_tensors(prog, "cuda") + (torch.as_tensor(X, device="cuda"),)
+    cpu_args = pe.program_tensors(prog, "cpu") + (torch.as_tensor(X),)
+    got = pe.portfolio_eval(*card_args, n_nodes=prog.n_real_nodes)
+    count = {}
+    t0 = time.perf_counter()
+    want = pe.eval_plain(*cpu_args, n_nodes=prog.n_real_nodes, count=count)
+    eval_plain_ms = (time.perf_counter() - t0) * 1e3
+    sync()
+    eval_bad += int((got[0].cpu() != want[0]).sum() + (got[1].cpu() != want[1]).sum())
+    eval_err = max(eval_err, int((got[1].cpu().long() - want[1].long()).abs().max()))
+    eval_ms = time_cuda(lambda: pe.portfolio_eval(*card_args, n_nodes=prog.n_real_nodes), 10)
+    # what the kernels replace: the plain version's PyTorch ops for one
+    # evaluation of this program (each a launch on the card), and at the
+    # host's dispatch time per launch, a first pass of the search (192
+    # steps, 194 evaluations) eagerly
+    small = tuple(a[..., :64, :] if a.dim() == 3 else a for a in cpu_args)
+    eager_ops = aten_ops(lambda: pe.eval_plain(*small, n_nodes=prog.n_real_nodes))
+    first_pass = eager_ops * FIRST_PASS_EVALS
+    log(f"[portfolio] the plain version runs {eager_ops} PyTorch ops per evaluation of "
+        f"this program at K=64: {first_pass:,} launches for one query's first pass, "
+        f"{first_pass * DISPATCH_US[0] / 1e6:.1f} s at this host's {DISPATCH_US[0]:.2f} us "
+        f"per trivial launch on {card}")
+    io_bytes = X.size * 4 + sum(a.numel() * 4 for a in card_args[:7]) + ENUM_K * 8
+    eval_bound, eval_by = work_bound(count, io_bytes)
+    log(f"[portfolio] portfolio_eval at K={ENUM_K}, {prog.n_real_nodes} nodes, L {prog.limbs}: "
+        f"kernel {eval_ms:.4f} ms, plain {eval_plain_ms:.1f} ms (CPU), bound {eval_bound:.4f} "
+        f"ms by {eval_by} ({count['ops']:,} int32 ops, {io_bytes:,} B in and out) on {card}")
+
+    # portfolio_sls: Q programs in one launch, bit-equal at a short budget;
+    # the solving and the synthetic programs also past 256 candidates,
+    # where a thread searches more than one (at every L)
+    knobs = dict(pf.PORTFOLIO_DEFAULTS)
+    sls_bad = sls_err = 0
+    sls_rows = []
+    groups = [("frontier", list(frontier_progs), SLS_CHECK_K[:1])] if frontier_progs else []
+    groups += [("solving", solving, SLS_CHECK_K)]
+    groups += [("synthetic", [p], SLS_CHECK_K[:2]) for p in synthetic_programs()]
+    for label, group, ks in groups:
+        card_in = pf.stack_programs(group, "cuda")
+        cpu_in = pf.stack_programs(group, "cpu")
+        for K in ks:
+            got = ps.portfolio_sls(*card_in, seed=7, steps=SLS_CHECK_STEPS, K=K, knobs=knobs)
+            count = {}
+            t0 = time.perf_counter()
+            want = ps.sls_plain(*cpu_in, seed=7, steps=SLS_CHECK_STEPS, K=K, count=count,
+                                **ps.search_args(K, knobs))
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            sync()
+            bad = sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
+            sls_bad += bad
+            sls_err = max([sls_err] + [int((g.cpu().long() - w.long()).abs().max())
+                                       for g, w in zip(got[1:], want[1:])])
+            ms = time_cuda(lambda: ps.portfolio_sls(*card_in, seed=7, steps=SLS_CHECK_STEPS, K=K,
+                                                    knobs=knobs), 5)
+            io_bytes = (sum(a.numel() * 4 for a in card_in) + got[1].numel() * 4
+                        + 2 * 4 * len(group))
+            bound, by = work_bound(count, io_bytes)
+            steps, solved = got[2].tolist(), got[0].tolist()
+            sls_rows.append(dict(programs=label, q=len(group), K=K,
+                                 limbs=max(p.limbs for p in group), ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by, steps=steps, solved=solved,
+                                 mismatches=bad))
+            log(f"[portfolio] portfolio_sls {label} Q={len(group)} K={K} "
+                f"L={sls_rows[-1]['limbs']} {SLS_CHECK_STEPS} steps: {bad} mismatches (solved, "
+                f"winners, steps); solved {[int(x) for x in solved]}, steps taken {steps}; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (CPU), bound {bound:.4f} ms by "
+                f"{by} on {card}")
+    # the checks must see the outcomes that make witnesses: a query solved
+    # by a seeded lane before the first step and one solved mid-search
+    # (the early stop, the first solved lane's winner, its step count)
+    at_init = sum(s and n == 0 for r in sls_rows for s, n in zip(r["solved"], r["steps"]))
+    mid = sum(s and 0 < n < SLS_CHECK_STEPS for r in sls_rows
+              for s, n in zip(r["solved"], r["steps"]))
+    log(f"[portfolio] portfolio_sls checks: {at_init} queries solved before the first step, "
+        f"{mid} solved after 1 to {SLS_CHECK_STEPS - 1} steps")
+    if not (at_init and mid):
+        raise SystemExit("the portfolio_sls checks never compared a solving search")
+    regs = portfolio_registers()
+    log(f"[portfolio] registers, spill bytes: {regs if regs else 'not measured'} "
+        f"(ptxas, sm_90a) for {card}")
+    if eval_bad or sls_bad:
+        raise SystemExit(f"the portfolio kernels disagree with their plain versions: "
+                         f"eval {eval_bad}, sls {sls_bad}")
+    main = sls_rows[0]
+    return {
+        "portfolio_eval": dict(mismatches=eval_bad, max_abs_err=eval_err, kernel_ms=eval_ms,
+                               plain_ms=eval_plain_ms, bound_ms=eval_bound, bound_by=eval_by,
+                               library_ms=None, plain_device="cpu", shape=f"K={ENUM_K}, "
+                               f"{prog.n_real_nodes} nodes, L={prog.limbs}",
+                               checked_candidates=eval_cases, registers=regs),
+        "portfolio_sls": dict(mismatches=sls_bad, max_abs_err=sls_err, kernel_ms=main["ms"],
+                              plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                              bound_by=main["bound_by"], library_ms=None, plain_device="cpu",
+                              shape=f"{main['programs']} Q={main['q']}, K={main['K']}, "
+                              f"L={main['limbs']}, {SLS_CHECK_STEPS} steps", checks=sls_rows),
+    }
+
+
+# a contract whose one branch tests calldata byte 0 (calldataload(0) >> 248
+# == 0x42, JUMPI at pc 11, SSTORE behind it): its flip is solvable, so the
+# witness -> next wave -> realized flip loop runs on the card
+ONE_BRANCH = bytes.fromhex("600035" "60f8" "1c" "6042" "14" "600d" "57" "00" "5b" "6001"
+                           "6000" "55" "00")
+
+
+def flip_loop_check(card):
+    """One generation of a one-branch contract on the card: the flip is
+    solved, its witness seeds the next wave, which takes the branch."""
+    import numpy as np
+
+    from mythril_tpu_torch.laser import flip_frontier as ff
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.laser.batch.arena import ArenaView
+    from mythril_tpu_torch.laser.batch.state import make_batch, make_code_table
+    from mythril_tpu_torch.laser.batch.symbolic import make_sym_batch, sym_run
+
+    n = 4
+    code_ids = np.zeros(n, np.int32)
+    base = make_batch(n, code_ids=code_ids, calldata=[bytes(wave.CALLDATA_LEN)] * n,
+                      **wave.BATCH_KWARGS)
+    table = make_code_table([ONE_BRANCH])
+    out, _, _ = sym_run(make_sym_batch(base), table, max_steps=64)
+    by_contract = ff.lanes_by_contract(code_ids)
+    res = ff.solve_frontier(ArenaView(out), {}, by_contract)
+    calldata = ff.generation_calldata([ONE_BRANCH], code_ids, 2, 1, res["witnesses"])
+    out2, _ = ff.next_wave(out, table, code_ids, calldata, max_steps=64)
+    hit = ff.realized(ArenaView(out2), by_contract, {0: [(11, True)]})
+    log(f"[flip] one-branch contract: {ff.describe(res)}; witness calldata[0] "
+        f"{calldata[0][:1].hex()}, {hit} of 1 flips realized in the next wave on {card}")
+    if hit != 1 or res["witness_invalid"]:
+        raise SystemExit("the one-branch contract's flip was not realized on the card")
+    return ff.frontier_queries(res)
+
+
+def phase_flip(card, big):
+    """The flip frontier at the explorer's geometry (a stripe of
+    LANES_PER_CONTRACT lanes per vendored contract) for GENERATIONS
+    generations, then the 16384-lane wave's frontier in one dispatch."""
+    from mythril_tpu_torch.laser import flip_frontier as ff
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+
+    per_gen = []
+    last = read_launches()
+
+    def report(g, res):
+        nonlocal last
+        now = read_launches()
+        launches = {k: now[k] - last[k] for k in ("portfolio_eval", "portfolio_sls")}
+        last = now
+        per_gen.append(launches)
+        log(f"[flip] generation {g}: {res['steps']} wave steps, {ff.describe(res)}; ms: "
+            f"wave {res['wave_ms']:.1f}, view {res['view_ms']:.1f}, decode "
+            f"{res['decode_ms']:.1f}, lower+compile {res['lower_compile_ms']:.1f}, device "
+            f"solve {res['solve_ms']:.1f}; launches {launches} on {card}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    stripes = len(wave.load_contracts())
+    history = ff.run_generations(stripes, ff.LANES_PER_CONTRACT, ff.GENERATIONS, log=report)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for res in history[:-1]:
+        log(f"[flip] generation {res['generation']}: {len(res['witnesses'])} witnesses, "
+            f"{res['realized']} flips realized in generation {res['generation'] + 1}, next "
+            f"wave {res['next_wave_ms']:.1f} ms on {card}")
+    log(f"[flip] {stripes * ff.LANES_PER_CONTRACT} lanes x {ff.GENERATIONS} generations: "
+        f"{wall:.3f} s, launches {launches} on {card}")
+    invalid = sum(r["witness_invalid"] for r in history)
+    if launches["portfolio_sls"] == 0:
+        raise SystemExit("the flip phase never launched portfolio_sls")
+    if launches["portfolio_eval"] == 0:
+        log("[flip] portfolio_eval was not launched: no query enumerated and none went to "
+            "the cube fan (every SLS survivor would be ranked by it)")
+    progs = ff.frontier_queries(history[0], limit=8)
+
+    # the explorer-width wave of phase_wave: its whole frontier, one dispatch
+    view, code_ids = big
+    reset_launches()
+    t0 = time.perf_counter()
+    res = ff.solve_frontier(view, {}, ff.lanes_by_contract(code_ids))
+    sync()
+    big_ms = (time.perf_counter() - t0) * 1e3
+    big_launches = read_launches()
+    invalid += res["witness_invalid"]
+    log(f"[flip] the {len(code_ids)}-lane wave's frontier: {ff.describe(res)}; ms: decode "
+        f"{res['decode_ms']:.1f}, lower+compile {res['lower_compile_ms']:.1f}, device solve "
+        f"{res['solve_ms']:.1f}, all {big_ms:.1f}; launches {big_launches} on {card}")
+    if invalid:
+        raise SystemExit(f"{invalid} witnesses failed validation")
+    progs += ff.frontier_queries(res, limit=2)
+    solving = flip_loop_check(card)
+    return dict(launches=launches, per_generation=per_gen, wall=wall, programs=progs,
+                solving=solving, big_launches=big_launches)
 
 
 def phase_bignum(card):
@@ -1244,6 +1663,7 @@ def main() -> int:
     host_us = host_cost_us(card)
     sync()
     if args == ["--kernels"]:
+        phase_portfolio_kernels(card, [])
         return 0
     main_path = phase_main_path(card)
     sync()
@@ -1255,6 +1675,10 @@ def main() -> int:
     sync()
     phase_sym_parity()
     sync()
+    flip = phase_flip(card, sym_wave["frontier"])
+    sync()
+    kern.update(phase_portfolio_kernels(card, flip["programs"], flip["solving"]))
+    sync()
     phase_vmtests()
     sync()
 
@@ -1265,15 +1689,20 @@ def main() -> int:
                           "mythril_tpu/ops/keccak_pallas.py:44"),
         "slot_write": ("mythril_tpu_torch/csrc/slot_write.cu",
                        "tools/pallas_stack_probe.py:62"),
+        "portfolio_eval": ("mythril_tpu_torch/csrc/portfolio.cu",
+                           "mythril_tpu/laser/smt/solver/portfolio.py:517"),
+        "portfolio_sls": ("mythril_tpu_torch/csrc/portfolio.cu",
+                          "mythril_tpu/laser/smt/solver/portfolio.py:635"),
     }
     report = {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": where[name][0],
         "replaces": where[name][1],
-        "on_path": name in PATH_KERNELS,
+        "on_path": name in PATH_KERNELS + FLIP_KERNELS,
         "launches": main_path["launches"][name],
         "launches_symbolic_wave": sym_wave["launches"][name],
+        "launches_flip": flip["launches"][name],
         **({"launches_many": main_path["launches"]["slot_write_many"],
             "launches_many_symbolic_wave": sym_wave["launches"]["slot_write_many"],
             "host_us_per_call_many": host_us["slot_write_many, 8 banks"]}
@@ -1285,7 +1714,7 @@ def main() -> int:
         "bound_ms": k.pop("bound_ms"),
         "bound_by": k.pop("bound_by"),
         "library_ms": k.pop("library_ms", None),
-        "host_us_per_call": host_us[name],
+        "host_us_per_call": host_us.get(name),
         **k,
     } for name, k in kern.items()]}
     print(json.dumps(report))

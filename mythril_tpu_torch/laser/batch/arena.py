@@ -11,23 +11,47 @@ JAX package's dtypes, so a view compares with the JAX view field by
 field.
 
 The term decode (`calldata_byte`, `term`, `row_operand_terms`,
-`path_condition`) lifts rows into SMT terms and waits for the port's
-copy of the SMT term layer; what is here reads rows, banks and journals
-only.
+`path_condition`) lifts a lane's rows into terms of the port's SMT layer
+(laser/smt), exactly as the JAX package's decode does: calldata bytes
+become 8-bit variables named `cd<i>`, so a witness assignment decodes
+straight back into the next generation's calldata; division follows the
+EVM's zero-divisor rule; symbolic EXP, and BYTE/SIGNEXTEND at a symbolic
+index, degrade to a fresh unconstrained variable; environment leaves
+decode to the wave's pinned concrete value.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import logging
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mythril_tpu_torch.laser.batch.symbolic import ENV_LEAF_OPS
+from mythril_tpu_torch.laser.smt import (
+    BitVec,
+    Bool,
+    Concat,
+    Extract,
+    If,
+    LShR,
+    SRem,
+    UDiv,
+    UGT,
+    ULT,
+    URem,
+    symbol_factory,
+)
 from mythril_tpu_torch.ops import u256
 from mythril_tpu_torch.support import hostsync
 from mythril_tpu_torch.support.opcodes import OPCODES
 
+log = logging.getLogger(__name__)
+
 _NAME = {entry[0]: name for name, entry in OPCODES.items()}
+
+TT256M1 = 2**256 - 1
 
 _U32 = ("va", "vb", "ev_a", "ev_b", "ev_gas", "gas_min", "gas_max",
         "storage_keys", "storage_vals")
@@ -105,10 +129,151 @@ class ArenaView:
             * self.storage_keys.shape[-1] * self.storage_keys.itemsize
         )
         self._closure: Dict[int, frozenset] = {}
+        self._terms: Dict[int, BitVec] = {}
+        self._cd_bytes: Dict[int, BitVec] = {}
+        self._fresh = 0
 
     def storage_tables(self):
         """(keys, vals, cnt) in the state.storage_dict_from shape."""
         return self.storage_keys, self.storage_vals, self.storage_cnt
+
+    # -- variables ------------------------------------------------------
+    def calldata_byte(self, i: int) -> BitVec:
+        if i not in self._cd_bytes:
+            self._cd_bytes[i] = symbol_factory.BitVecSym(f"cd{i}", 8)
+        return self._cd_bytes[i]
+
+    def _fresh_word(self, tag: str) -> BitVec:
+        self._fresh += 1
+        return symbol_factory.BitVecSym(f"dev_{tag}_{self._fresh}", 256)
+
+    # -- term reconstruction -------------------------------------------
+    def term(self, tid: int, lane: int) -> Optional[BitVec]:
+        """The 256-bit term behind an arena id; None for opaque ids."""
+        if tid < 0:
+            return None
+        if tid == 0:
+            raise ValueError("tid 0 is concrete; caller handles values")
+        if tid in self._terms:
+            return self._terms[tid]
+        row = tid - 1
+        if row >= self.count:
+            return None
+        built = self._build(row, lane)
+        if built is not None:
+            self._terms[tid] = built
+        return built
+
+    def _operand(self, tid: int, value_limbs, lane: int) -> Optional[BitVec]:
+        if tid == 0:
+            return symbol_factory.BitVecVal(u256.to_int(value_limbs), 256)
+        return self.term(tid, lane)
+
+    def _build(self, row: int, lane: int) -> Optional[BitVec]:
+        opcode = _NAME.get(int(self.op[row]))
+        if opcode is None:
+            return None
+
+        if opcode in ENV_LEAF_OPS:
+            # environment leaf: decodes to the wave's pinned concrete
+            # value, so env-guarded flips solve to REPLAYABLE calldata
+            # (symbolic.py ENV_LEAF_OPS); provenance via dag_source_ops
+            return symbol_factory.BitVecVal(u256.to_int(self.va[row]), 256)
+
+        if opcode == "CALLDATALOAD":
+            offset = u256.to_int(self.va[row])
+            limit = int(self.calldatasize[lane])
+            parts = []
+            for k in range(32):
+                at = offset + k
+                parts.append(
+                    self.calldata_byte(at)
+                    if at < limit
+                    else symbol_factory.BitVecVal(0, 8)
+                )
+            return Concat(parts)
+
+        a = self._operand(int(self.a[row]), self.va[row], lane)
+        b = self._operand(int(self.b[row]), self.vb[row], lane)
+        if a is None or (opcode not in ("ISZERO", "NOT") and b is None):
+            return None
+        return self._apply(opcode, a, b)
+
+    def _apply(self, opcode: str, a: BitVec, b: BitVec) -> Optional[BitVec]:
+        zero = symbol_factory.BitVecVal(0, 256)
+        one = symbol_factory.BitVecVal(1, 256)
+
+        def as_word(cond: Bool) -> BitVec:
+            return If(cond, one, zero)
+
+        if opcode == "ADD":
+            return a + b
+        if opcode == "SUB":
+            return a - b
+        if opcode == "MUL":
+            return a * b
+        if opcode == "DIV":
+            return If(b == zero, zero, UDiv(a, b))
+        if opcode == "SDIV":
+            return If(b == zero, zero, a / b)
+        if opcode == "MOD":
+            return If(b == zero, zero, URem(a, b))
+        if opcode == "SMOD":
+            return If(b == zero, zero, SRem(a, b))
+        if opcode == "AND":
+            return a & b
+        if opcode == "OR":
+            return a | b
+        if opcode == "XOR":
+            return a ^ b
+        if opcode == "NOT":
+            return symbol_factory.BitVecVal(TT256M1, 256) - a
+        if opcode == "ISZERO":
+            return as_word(a == zero)
+        if opcode == "LT":
+            return as_word(ULT(a, b))
+        if opcode == "GT":
+            return as_word(UGT(a, b))
+        if opcode == "SLT":
+            return as_word(a < b)
+        if opcode == "SGT":
+            return as_word(a > b)
+        if opcode == "EQ":
+            return as_word(a == b)
+        if opcode == "SHL":
+            return b << a
+        if opcode == "SHR":
+            return LShR(b, a)
+        if opcode == "SAR":
+            return b >> a
+        if opcode == "BYTE":
+            # concrete index is the common shape; symbolic degrades
+            if not a.symbolic:
+                i = a.value
+                if i >= 32:
+                    return zero
+                low = (31 - i) * 8
+                return Concat(
+                    symbol_factory.BitVecVal(0, 248), Extract(low + 7, low, b)
+                )
+            return self._fresh_word("byte")
+        if opcode == "SIGNEXTEND":
+            if not a.symbolic:
+                k = a.value
+                if k > 31:
+                    return b
+                bit = 1 << (k * 8 + 7)
+                return If(
+                    (b & bit) == zero,
+                    b & (bit - 1),
+                    b | (TT256M1 - bit + 1),
+                )
+            return self._fresh_word("signextend")
+        if opcode == "EXP":
+            # matches the host engine: symbolic EXP is unconstrained
+            return self._fresh_word("exp")
+        log.debug("arena decode: unsupported node op %s", opcode)
+        return None
 
     # -- evidence banks -------------------------------------------------
     def events(self, lane: int) -> List[Dict]:
@@ -175,6 +340,19 @@ class ArenaView:
             return False
         return any(wrap_tid in self.subterms(root) for root in self.used_roots(lane))
 
+    def row_operand_terms(self, tid: int, lane: int):
+        """(a, b) operand terms of a node (constants folded in) — the
+        raw material for steering conditions like 'make this SUB
+        underflow'. None when the node or an operand is opaque."""
+        if tid <= 0 or tid - 1 >= self.count:
+            return None
+        row = tid - 1
+        a = self._operand(int(self.a[row]), self.va[row], lane)
+        b = self._operand(int(self.b[row]), self.vb[row], lane)
+        if a is None or b is None:
+            return None
+        return a, b
+
     @staticmethod
     def _neg_sources(t: int) -> set:
         bits = min(-t - 1, 3)
@@ -211,3 +389,22 @@ class ArenaView:
              int(self.br_tid[lane, k]))
             for k in range(n)
         ]
+
+    def path_condition(
+        self, lane: int, upto: int, flip_last: bool = True
+    ) -> Optional[List[Bool]]:
+        """Constraints pinning the journal prefix [0..upto], with the
+        final decision inverted when `flip_last`. None when any
+        symbolic decision on the prefix is opaque."""
+        zero = symbol_factory.BitVecVal(0, 256)
+        out: List[Bool] = []
+        for k, (pc, taken, tid) in enumerate(self.journal(lane)[: upto + 1]):
+            if tid == 0:
+                continue  # concrete condition constrains nothing
+            cond = self.term(tid, lane)
+            if cond is None:
+                return None
+            want_taken = taken if not (flip_last and k == upto) else not taken
+            out.append(cond != zero if want_taken else cond == zero)
+        return out
+

@@ -73,14 +73,17 @@ def _ar(n, device, dtype=torch.int64):
 def _propagate(s):
     """Resolve single-bit carries over limb sums in one pass.
 
-    `s` is int64 [..., n] (n <= 62) with every limb <= 0x1FFFE (limb 0
-    may reach 0x1FFFF), so each limb's carry-out is 0 or 1: a limb above
-    0xFFFF generates a carry, a limb equal to 0xFFFF propagates one. The
-    generate and propagate flags are packed into one integer per word
-    and added (a + b where a = G|P, b = G): the carry into limb i is
-    bit i of (a + b) ^ a ^ b. The carry out of the top limb is dropped
+    `s` is int64 [..., n] with every limb <= 0x1FFFE (limb 0 may reach
+    0x1FFFF), so each limb's carry-out is 0 or 1: a limb above 0xFFFF
+    generates a carry, a limb equal to 0xFFFF propagates one. Up to 62
+    limbs the generate and propagate flags are packed into one integer
+    per word and added (a + b where a = G|P, b = G): the carry into limb
+    i is bit i of (a + b) ^ a ^ b. Wider words take a Kogge-Stone scan
+    over the flags. The carry out of the top limb is dropped
     (arithmetic mod 2**(16n))."""
     n = s.shape[-1]
+    if n > 62:
+        return _propagate_scan(s)
     w = torch.ones((), dtype=torch.int64, device=s.device) << _ar(n, s.device)
     g = ((s > LIMB_MASK).to(torch.int64) * w).sum(-1)
     p = ((s == LIMB_MASK).to(torch.int64) * w).sum(-1)
@@ -90,13 +93,29 @@ def _propagate(s):
     return ((s + cin) & LIMB_MASK).to(DTYPE)
 
 
+def _propagate_scan(s):
+    """`_propagate` for any limb count: the carries from a Kogge-Stone
+    scan over (generate, propagate), log2(n) rounds."""
+    g = s > LIMB_MASK
+    p = s == LIMB_MASK
+    n = s.shape[-1]
+    d = 1
+    while d < n:
+        g = g | (p & torch.nn.functional.pad(g[..., :-d], (d, 0)))
+        p = p & torch.nn.functional.pad(p[..., :-d], (d, 0))
+        d *= 2
+    cin = torch.nn.functional.pad(g[..., :-1], (1, 0)).to(torch.int64)
+    return ((s + cin) & LIMB_MASK).to(DTYPE)
+
+
 def _carry(s, rounds: int = 1):
     """Propagate carries over raw limb sums. Drops overflow.
 
     Each normalisation round moves every limb's bits above 16 one limb
     up; `rounds` is chosen by the caller so that afterwards every limb
     is at most 0x1FFFE (one round for sums below 2**32, two for the
-    schoolbook's anti-diagonal sums below 2**37)."""
+    schoolbook's anti-diagonal sums of n products, below 2**(32 +
+    log2 n), for any n up to 2**16 limbs)."""
     s = s.to(torch.int64)
     for _ in range(rounds):
         hi = s >> LIMB_BITS

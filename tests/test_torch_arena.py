@@ -12,7 +12,18 @@ The port's `ArenaView` of its wave must equal the JAX `ArenaView` of the
 JAX wave: every array, the byte counts, and per lane the events, branch
 journal, used roots, wrap usage and DAG source ops.
 
-Regenerate the pinned digests from the JAX package with
+The term decode: the wave's flip frontier (`flip_frontier`: coverage
+harvest, the explorer's candidate rule, `path_condition`, `lower`) is
+decoded from both views. Every candidate's path condition and lowered
+query must be equal in a canonical form: `canonical_digest` hashes a
+term DAG by structure and sorts the children of commutative ops (`add`,
+`eq`, `band`, `bor`, ...), whose order each interner decides by its own
+creation ids, which differ between the two packages in one process.
+The JAX decode's digests are pinned in
+`mythril_tpu_torch/laser/flip_frontier_pinned.json`, which chip_smoke.py
+holds the card's decode to.
+
+Regenerate both pinned files from the JAX package with
 
     PYTHONPATH=. python tests/test_torch_arena.py --pin
 """
@@ -33,7 +44,9 @@ from mythril_tpu.laser.batch.state import make_code_table as jax_make_code_table
 from mythril_tpu.laser.batch.symbolic import SymBatch as JaxSym
 from mythril_tpu.laser.batch.symbolic import make_sym_batch as jax_make_sym_batch
 from mythril_tpu.laser.batch.symbolic import sym_run as jax_sym_run
+from mythril_tpu.laser.smt.solver.preprocess import lower as jax_lower
 from mythril_tpu_torch import interop
+from mythril_tpu_torch.laser import flip_frontier as ff
 from mythril_tpu_torch.laser import symbolic_wave as wave
 from mythril_tpu_torch.laser.batch.arena import ArenaView
 from mythril_tpu_torch.laser.batch.symbolic import sym_run
@@ -151,9 +164,39 @@ def test_view_methods_match_jax_on_every_lane(views):
     assert n_events > 0 and n_roots > 0
 
 
+@pytest.fixture(scope="module")
+def frontiers(views, port_run):
+    port_view, jax_view, _ = views
+    code_ids = port_run[0].base.code_id.numpy()
+    return (ff.pinned_wave_frontier(port_view, code_ids),
+            ff.pinned_wave_frontier(jax_view, code_ids, lower_fn=jax_lower))
+
+
+def test_frontier_decode_matches_jax(frontiers):
+    port, ref = frontiers
+    assert port == ref
+    assert port["tried"] > port["opaque"] > 0 and len(port["candidates"]) > 0
+    assert all(c["lowered"] is not None for c in port["candidates"])
+
+
+def test_frontier_decode_matches_pinned_file(frontiers):
+    pinned = ff.load_pinned()
+    assert pinned["settings"] == SETTINGS
+    assert {k: v for k, v in pinned.items() if k != "settings"} == frontiers[0]
+
+
+def _pin_frontier(out):
+    view = JaxArenaView(jax.tree_util.tree_map(jnp.asarray, out))
+    frontier = ff.pinned_wave_frontier(view, np.asarray(out.base.code_id), lower_fn=jax_lower)
+    ff.PINNED.write_text(json.dumps({"settings": SETTINGS, **frontier}, indent=1,
+                                    sort_keys=True) + "\n")
+    print(f"wrote {len(frontier['candidates'])} candidates' digests to {ff.PINNED}")
+
+
 def _pin():
     out, steps, active = jax_wave()
     out = jax.device_get(out)
+    _pin_frontier(out)
     wave.PINNED.write_text(json.dumps({
         "settings": SETTINGS,
         "steps": steps,

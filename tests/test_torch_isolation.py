@@ -1,7 +1,10 @@
 """The port stands alone: no jax, nothing of the JAX package.
 
-A subprocess imports `mythril_tpu_torch`, runs a 4-lane CPU `run` and a
-4-lane symbolic wave (`sym_run`, `ArenaView`, `reseed_wave`), and
+A subprocess imports `mythril_tpu_torch`, runs a 4-lane CPU `run`, a
+4-lane symbolic wave (`sym_run`, `ArenaView`, `reseed_wave`), the
+wave's flip frontier (`flip_frontier`: harvest, candidates, the term
+decode, `lower`) and a `device_solve_batch` of one query (the SMT term
+layer, `compile_program`, enumeration through `portfolio_eval`), and
 checks that `jax` never entered `sys.modules` and that no module of the
 JAX package did either. A source scan finds no import of either in the
 port's files or in chip_smoke.py. Without a CUDA device, an entry point
@@ -40,6 +43,19 @@ reseed_wave(out, *(t.numpy() for t in (symb.base.code_id, symb.base.calldata,
     symb.base.calldatasize, symb.base.callvalue, symb.base.balance,
     symb.base.storage_keys, symb.base.storage_vals, symb.base.storage_cnt)),
     symb.base.storage_cnt.numpy() > 0)
+from mythril_tpu_torch.laser import flip_frontier as ff
+from mythril_tpu_torch.laser.smt import terms as T
+from mythril_tpu_torch.laser.smt.solver import portfolio
+by = ff.lanes_by_contract(symb.base.code_id.numpy())
+tracks = {}
+ff.harvest(view, tracks, by)
+cands, tried, opaque = ff.collect_candidates(view, tracks, by)
+lowered, kept = ff.lower_flips([c for _, _, c, _ in cands])
+assert len(kept) == len(cands) and tried >= len(cands), (tried, len(cands))
+x = T.bv_var("iso_x", 4)
+(v,) = portfolio.device_solve_batch([[T.eq(T.add(x, T.bv_const(3, 4)), T.bv_const(1, 4))]],
+                                    device="cpu")
+assert (v.status, v.via, v.assignment) == ("sat", "enum", {"iso_x": 14}), v
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "mythril_tpu" or m.startswith("mythril_tpu."))
@@ -89,13 +105,25 @@ def test_entry_points_without_device_raise_where_no_cuda():
     from mythril_tpu_torch.laser import symbolic_wave
     from mythril_tpu_torch.laser.batch import make_batch, make_code_table
     from mythril_tpu_torch.laser.conformance import run_cases
+    from mythril_tpu_torch.laser import flip_frontier
+    from mythril_tpu_torch.laser.smt import terms as T
+    from mythril_tpu_torch.laser.smt.solver import portfolio
     from mythril_tpu_torch.ops.keccak import keccak256
 
     wave_np = interop.symbatch_to_numpy(symbolic_wave.make_wave(1, 2, device="cpu")[0])
+    x = T.bv_var("iso_nodev_x", 8)
+    query = [T.ult(x, T.bv_const(9, 8))]
+    prog = portfolio.compile_program(query)
     for call in (lambda: make_batch(2), lambda: make_code_table([b"\x00"]),
                  lambda: run_cases([]), lambda: keccak256(b""),
                  lambda: symbolic_wave.make_wave(1, 2),
-                 lambda: interop.symbatch_from_numpy(wave_np)):
+                 lambda: interop.symbatch_from_numpy(wave_np),
+                 lambda: portfolio.device_solve_batch([query]),
+                 lambda: portfolio.device_enumerate(prog),
+                 lambda: portfolio.device_check(query),
+                 lambda: portfolio.debug_eval(prog, {}),
+                 lambda: portfolio.rank_impact_vars(prog),
+                 lambda: flip_frontier.run_generations(1, 2, 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

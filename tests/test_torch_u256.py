@@ -192,3 +192,28 @@ def test_limbs_round_trip_python_ints():
     for v in A_INTS[:16]:
         assert tu.to_int(_t(tu.from_int(v))) == v
         assert tu.to_int(tu.const(v, (2,))[1]) == v
+
+
+@pytest.mark.parametrize("limbs", [62, 63, 64, 128])
+def test_wide_words_match_python_ints(limbs):
+    # above 62 limbs the carries come from the Kogge-Stone scan instead of
+    # one packed integer add; the portfolio's plain evaluator runs L = 64
+    # and 128 through these same functions
+    rng = np.random.default_rng(limbs)
+    bits = 16 * limbs
+    mod = 1 << bits
+    vals = [mod - 1, 1, 0, (1 << (bits - 1)) | 0xFFFF] + [
+        int.from_bytes(rng.bytes(2 * limbs), "little") for _ in range(4)]
+    dens = [1, mod - 1, 0, 0xFFFF] + [
+        int.from_bytes(rng.bytes(2 * limbs), "little") >> int(s)
+        for s in rng.integers(0, bits, 4)]
+    a = torch.stack([_t(tu.from_int(v, limbs)) for v in vals])
+    b = torch.stack([_t(tu.from_int(v, limbs)) for v in dens])
+    add, sub, mul = tu.add(a, b), tu.sub(a, b), tu.mul(a, b)
+    q, r = tu.udivmod(a, b)
+    for i, (x, y) in enumerate(zip(vals, dens)):
+        assert tu.to_int(add[i]) == (x + y) % mod
+        assert tu.to_int(sub[i]) == (x - y) % mod
+        assert tu.to_int(mul[i]) == (x * y) % mod
+        assert (tu.to_int(q[i]), tu.to_int(r[i])) == ((x // y, x % y) if y else (0, 0))
+        assert bool(tu.ult(a[i], b[i])) == (x < y)
