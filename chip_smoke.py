@@ -5,11 +5,17 @@
     python3 chip_smoke.py --kernels         # device, build, the kernel
                                             # phases and the wrappers' host cost
                                             # (portfolio kernels on the
-                                            # synthetic programs only)
+                                            # solving and synthetic programs)
     python3 chip_smoke.py --ab-host-reads   # device, build, then only the
                                             # A/B of the u256 loops' host read
     python3 chip_smoke.py --ab-windows      # device, build, then only the
                                             # A/B of the wave's memory windows
+    python3 chip_smoke.py --ab-portfolio DIR  # the portfolio kernels of the
+                                            # checkout in DIR (a parent, unpacked
+                                            # with git archive under _archive/;
+                                            # any other DIR is refused) against
+                                            # this one's, at the flip's shapes,
+                                            # in the order DIR, this, this, DIR
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 non-zero (nothing is caught):
@@ -81,12 +87,22 @@ non-zero (nothing is caught):
    next generation, the stages' ms and the kernels' launches. Then the
    frontier of phase 5's 16384-lane wave in one dispatch;
 8. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
-   own programs and on synthetic ones at 32 to 2048 bits (every op, L =
-   16 to 128), each against its plain version run on CPU copies of the
-   same inputs (bit for bit; portfolio_sls at a 16-step budget, at
-   which its counter-based random streams agree step by step), timed
-   beside the bound the plain version's operation count gives and the
-   plain version's time; registers and spills from ptxas;
+   own programs (the search also on the cube fan's), on queries the
+   search solves (before the first step and mid-search) and on
+   synthetic ones at 32 to 2048 bits (every op, L = 16 to 128), each
+   against its plain version run on CPU copies of the same inputs (bit
+   for bit; portfolio_sls at a 16-step budget, at which its
+   counter-based random streams agree step by step, also with the Luby
+   restart unit lowered to 2 and 4 so that lanes restart), every check
+   under the launch plan's own choice, with the global variant forced
+   and (the search) with each cluster size forced, each plan logged and
+   its shared bytes held to the kernel's own layout; timed (device time
+   from torch.profiler; "not measured" where it saw no kernel, and the
+   run fails if that is a kernels-line shape) beside the bound the plain
+   version's operation count gives and the plain version's time, also
+   at the flip's own shapes (the first pass and the cube fan, K = 64,
+   192 steps; rank_impact_vars' batch) and at Q = 128 queries;
+   registers and spills from ptxas;
 9. VMTests: every vendored suite through run_cases(hybrid=False) on the
    card, name by name against the JAX package's pinned verdicts
    (mythril_tpu_torch/laser/vmtests_device_verdicts.json), with no
@@ -111,6 +127,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -134,6 +151,10 @@ PARITY_STRIPES = 4  # a 128-lane wave on the card against the CPU
 SLS_CHECK_STEPS = 16  # the step budget at which portfolio_sls is held to its plain version
 SLS_CHECK_K = (64, 320, 512)  # candidates per SLS check: the explorer's, and past one a thread
 EVAL_CHECK_K = (16, 256)  # candidates per portfolio_eval check (16: rank_impact_vars' probes)
+RANK_PROBES = 16  # rank_impact_vars' probe batch: it scores (V + 1) batches in one call
+RESTART_BASES = (2, 4)  # the restart-forcing checks' Luby unit (the default is 24)
+FLIP_STEPS = 192  # device_solve_batch's first pass (PORTFOLIO_DEFAULTS first_pass_steps)
+OCCUPANCY_Q = 128  # queries of the timed occupancy run
 ENUM_K = 4096  # device_enumerate's chunk: portfolio_eval's timed shape
 
 # H100 SXM peaks (NVIDIA data sheet; the full 700 W power limit)
@@ -222,6 +243,43 @@ def time_cuda(fn, reps):
     return statistics.median(times)
 
 
+def kernel_ms(fn, kernel, reps):
+    """(device ms, call ms) of one call of `fn`: the mean device time of
+    the CUDA kernels whose name holds `kernel`, from torch.profiler around
+    `reps` calls (a second profile where the first saw none of them; None
+    where neither did), and the median time between CUDA events around
+    one call, which also holds the wrapper's host work. The second is
+    never a stand-in for the first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm: the card's clocks rise under load
+    call = time_cuda(fn, reps)
+    for _ in range(2):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type.name == "CUDA" and kernel in e.name]
+        if us:
+            return sum(us) / reps / 1e3, call
+    return None, call
+
+
+def ms_text(ms):
+    """A kernel time for the log: 4 decimals, or why there is none."""
+    return "not measured (the profiler saw no kernel)" if ms is None else f"{ms:.4f} ms"
+
+
+def sm_clocks() -> str:
+    """The card's SM clock against its most, its power draw and its
+    temperature, from nvidia-smi."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
+
+
 def host_cpu() -> str:
     """The host's CPU model and core count, from /proc/cpuinfo (its
     vendor, family and model numbers where it names no model)."""
@@ -280,8 +338,17 @@ def phase_build():
     built = build.build(verbose=True)
     for stem, (secs, report) in built.items():
         BUILD_REPORTS[stem] = report
+        table = ptxas_table(report)
         log(f"[build] csrc/{stem}.cu: done by {secs:.2f} s; ptxas (registers, spill bytes): "
-            f"{ptxas_table(report) or report or 'no report'}")
+            f"{table or report or 'no report'}")
+        if any(spill for _, spill in table.values()):
+            # the spilling functions' own lines: stack frame, spills, registers
+            lines = report.splitlines()
+            for i, line in enumerate(lines):
+                if "Function properties" in line:
+                    block = lines[i:i + 3]
+                    if any(re.search(r"[1-9]\d* bytes spill", b) for b in block):
+                        log("[build]   " + " | ".join(b.strip() for b in block))
     log(f"[build] nvcc {build.nvcc()}: {len(built)} sources in parallel, "
         f"{time.perf_counter() - t0:.2f} s wall")
 
@@ -1103,7 +1170,8 @@ def _identifiers(mangled):
 def ptxas_table(report):
     """{function: (registers, spill bytes)} from a ptxas -v report, the
     mangled names cut to the kernel's (or device function's) name and
-    its limb-count template argument."""
+    its template arguments (the limb count; the portfolio kernels'
+    shared or global variant)."""
     out = {}
     name = None
     for line in report.splitlines():
@@ -1113,8 +1181,10 @@ def ptxas_table(report):
             parts = [w for w in _identifiers(mangled)
                      if w.endswith("kernel") or w in ("eval_program", "udivmod")]
             name = parts[-1] if parts else mangled[:60]
-            t = re.search(r"ILi(\d+)E", mangled)
-            name += f"<{t.group(1)}>" if t else ""
+            t = re.search(r"ILi(\d+)E(?:Lb([01])E)?", mangled)
+            if t:
+                variant = {"1": ",shared", "0": ",global"}.get(t.group(2), "")
+                name += f"<{t.group(1)}{variant}>"
             out[name] = [None, 0]
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -1127,10 +1197,11 @@ def ptxas_table(report):
 
 
 def portfolio_registers():
-    """{kernel or device function <L>: (registers, spill bytes)} of
-    csrc/portfolio.cu from the build's ptxas report (None where the build
-    printed none)."""
-    return ptxas_table(BUILD_REPORTS.get("portfolio", "")) or None
+    """{kernel <L, variant>: (registers, spill bytes)} of csrc/portfolio.cu
+    and csrc/portfolio_sls.cu from the build's ptxas reports (None where
+    the build printed none)."""
+    return ptxas_table(BUILD_REPORTS.get("portfolio", "") + "\n"
+                       + BUILD_REPORTS.get("portfolio_sls", "")) or None
 
 
 FIRST_PASS_EVALS = 192 + 2  # a first pass: the initial score, 192 steps, the final score
@@ -1215,12 +1286,75 @@ def solving_programs():
     return [pf.compile_program(lower(q)[0]) for q in queries]
 
 
+@contextmanager
+def plan_forced(mod, variant=None, cluster=None):
+    """Force a portfolio wrapper's launch plan (`mod.PLAN_OVERRIDE`) for
+    the calls inside."""
+    saved = dict(mod.PLAN_OVERRIDE)
+    mod.PLAN_OVERRIDE.clear()
+    mod.PLAN_OVERRIDE.update({k: v for k, v in (("variant", variant), ("cluster", cluster))
+                              if v is not None})
+    try:
+        yield
+    finally:
+        mod.PLAN_OVERRIDE.clear()
+        mod.PLAN_OVERRIDE.update(saved)
+
+
+def plan_text(plan):
+    """One launch plan, short: variant, blocks (or cluster) x candidate
+    slots a block (x candidates a slot), shared bytes."""
+    if "cluster" in plan:
+        return (f"{plan['variant']} {plan['cluster']}x{plan['slots']}x{plan['per_thread']} "
+                f"({plan['smem']} B)")
+    return f"{plan['variant']} {plan['blocks']}x{plan['slots']} ({plan['smem']} B)"
+
+
+def sls_stack_plan(group, K, variant=None, cluster=None):
+    """The plan portfolio_sls takes for these stacked programs, with the
+    kernel's own count of its shared bytes (`kernel_smem`)."""
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+    from mythril_tpu_torch.ops import portfolio_sls as ps
+
+    cpu_in = pf.stack_programs(group, "cpu")
+    dims = (cpu_in[0].shape[1], cpu_in[4].shape[2], K, cpu_in[7].shape[1],
+            cpu_in[4].shape[1], cpu_in[5].shape[1])
+    plan = ps.sls_plan(*dims, variant, cluster)
+    n, L, _, V, C, R = dims
+    plan["kernel_smem"] = ps.kernel_smem_bytes(n, L, V, C, R, plan["slots"], plan["per_block"],
+                                               plan["variant"] == "shared")
+    return plan
+
+
+def cycled(progs, q):
+    """q programs: `progs` repeated in turn."""
+    return [progs[i % len(progs)] for i in range(q)]
+
+
+def cube_programs(progs):
+    """The cube fan's programs of `progs` as device_solve_batch builds
+    them (rank_impact_vars on the card, then 2**cube_depth cubes each)."""
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+
+    out = []
+    for prog in progs:
+        ranked = pf.rank_impact_vars(prog, device="cuda")
+        for cq in pf.cube_queries(prog.source, prog, ranked=ranked):
+            cprog = pf.compile_program(cq)
+            if cprog is not None and cprog.var_slots:
+                out.append(cprog)
+    return out
+
+
 def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
     """Both portfolio kernels held to their plain versions (run on CPU
     copies of the same inputs) on the frontier's own programs, on
     programs the search solves (`solving_progs`, the one-branch
-    contract's, plus `solving_programs()`) and on the synthetic ones,
-    then timed against their bounds."""
+    contract's, plus `solving_programs()`), on the synthetic ones and,
+    for the search, with the Luby restarts forced (RESTART_BASES); every
+    check under the plan's own choice, the global variant forced and each
+    cluster size forced. Then timed against their bounds, also at the
+    flip's own shapes and at Q = OCCUPANCY_Q."""
     import numpy as np
     import torch
 
@@ -1230,7 +1364,8 @@ def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
 
     rng = np.random.default_rng(4)
     solving = list(solving_progs) + solving_programs()
-    progs = list(frontier_progs) + solving + synthetic_programs()
+    synthetic = synthetic_programs()
+    progs = list(frontier_progs) + solving + synthetic
 
     def rand_X(prog, K):
         X = rng.integers(0, 1 << 16, (len(prog.var_slots), K, prog.limbs))
@@ -1240,120 +1375,271 @@ def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
             X[v] &= np.array(pe.width_mask(w, prog.limbs))[None, :]
         return X
 
-    # portfolio_eval: every candidate's (solved, score) on every program
+    def eval_plan_of(prog, K, variant=None):
+        """The plan, with the kernel's own count of its shared bytes."""
+        dims = (prog.n_real_nodes, prog.limbs, K, len(prog.var_slots),
+                prog.const_pool.shape[0], prog.roots.shape[0])
+        plan = pe.eval_plan(*dims, variant)
+        n, L, _, V, C, R = dims
+        plan["kernel_smem"] = (pe.kernel_smem_bytes(n, L, V, C, R, plan["slots"])
+                               if plan["variant"] == "shared" else 0)
+        return plan
+
+    # the plans' shared bytes against the kernels' own layouts (a launch
+    # short of the layout is refused by the C entry)
+    layout_bad = 0
+
+    def held(plan):
+        nonlocal layout_bad
+        layout_bad += int(plan["smem"] != plan["kernel_smem"])
+        return plan
+
+    # portfolio_eval: every candidate's (solved, score) on every program,
+    # under the plan's variant and with the global variant forced
     eval_bad = eval_cases = eval_err = 0
-    for prog in progs:
-        for K in EVAL_CHECK_K:
-            X = rand_X(prog, K)
-            got = pe.portfolio_eval(*pe.program_tensors(prog, "cuda"),
-                                    torch.as_tensor(X, device="cuda"), n_nodes=prog.n_real_nodes)
-            want = pe.portfolio_eval(*pe.program_tensors(prog, "cpu"), torch.as_tensor(X),
-                                     n_nodes=prog.n_real_nodes)
+    eval_plans = {}
+
+    def eval_check(prog, X, count=None):
+        nonlocal eval_bad, eval_err, eval_cases
+        card_args = pe.program_tensors(prog, "cuda") + (torch.as_tensor(X, device="cuda"),)
+        t0 = time.perf_counter()
+        want = pe.eval_plain(*pe.program_tensors(prog, "cpu"), torch.as_tensor(X),
+                             n_nodes=prog.n_real_nodes, count=count)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for variant in (None, "global"):
+            with plan_forced(pe, variant):
+                got = pe.portfolio_eval(*card_args, n_nodes=prog.n_real_nodes)
             sync()
             eval_bad += int((got[0].cpu() != want[0]).sum() + (got[1].cpu() != want[1]).sum())
             eval_err = max(eval_err, int((got[1].cpu().long() - want[1].long()).abs().max()))
-            eval_cases += K
+            eval_cases += X.shape[1]
+            plan = held(eval_plan_of(prog, X.shape[1], variant))
+            key = (prog.limbs, X.shape[1], plan["variant"], plan["slots"])
+            eval_plans[key] = eval_plans.get(key, 0) + 1
+        return card_args, plain_ms
+
+    for prog in progs:
+        for K in EVAL_CHECK_K:
+            eval_check(prog, rand_X(prog, K))
     log(f"[portfolio] portfolio_eval on {len(progs)} programs ({len(frontier_progs)} of the "
-        f"frontier; L {sorted({p.limbs for p in progs})}) x K {list(EVAL_CHECK_K)} candidates: "
-        f"{eval_bad} mismatches against the plain version on {card}")
-    # the enumeration shape on the frontier's largest program
+        f"frontier; L {sorted({p.limbs for p in progs})}) x K {list(EVAL_CHECK_K)} candidates, "
+        f"the plan's variant and the global one: {eval_bad} mismatches against the plain "
+        f"version on {card}; plans (L, K, variant, slots): programs {eval_plans}")
+
+    # the timed shapes on the frontier's largest program: device_enumerate's
+    # chunk, rank_impact_vars' batch ((V + 1) x 16 probes) and one probe batch
     prog = max(progs[:max(1, len(frontier_progs))], key=lambda p: p.n_real_nodes)
-    X = rand_X(prog, ENUM_K)
-    card_args = pe.program_tensors(prog, "cuda") + (torch.as_tensor(X, device="cuda"),)
-    cpu_args = pe.program_tensors(prog, "cpu") + (torch.as_tensor(X),)
-    got = pe.portfolio_eval(*card_args, n_nodes=prog.n_real_nodes)
-    count = {}
-    t0 = time.perf_counter()
-    want = pe.eval_plain(*cpu_args, n_nodes=prog.n_real_nodes, count=count)
-    eval_plain_ms = (time.perf_counter() - t0) * 1e3
-    sync()
-    eval_bad += int((got[0].cpu() != want[0]).sum() + (got[1].cpu() != want[1]).sum())
-    eval_err = max(eval_err, int((got[1].cpu().long() - want[1].long()).abs().max()))
-    eval_ms = time_cuda(lambda: pe.portfolio_eval(*card_args, n_nodes=prog.n_real_nodes), 10)
+    n_var = len(prog.var_slots)
+    eval_shapes = []
+    for K in (ENUM_K, (n_var + 1) * RANK_PROBES, RANK_PROBES):
+        X = rand_X(prog, K)
+        count = {}
+        card_args, plain_ms = eval_check(prog, X, count)
+        io_bytes = X.size * 4 + sum(a.numel() * 4 for a in card_args[:7]) + K * 8
+        bound, by = work_bound(count, io_bytes)
+        row = dict(shape=f"K={K}, {prog.n_real_nodes} nodes, L={prog.limbs}", K=K,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by, ops=count["ops"],
+                   io_bytes=io_bytes)
+        for variant in (None, "global"):
+            tag = "" if variant is None else "global_"
+            with plan_forced(pe, variant):
+                dev_ms, call_ms = kernel_ms(
+                    lambda: pe.portfolio_eval(*card_args, n_nodes=prog.n_real_nodes),
+                    "portfolio_eval_kernel", 10)
+            row[tag + "ms"] = dev_ms
+            row[tag + "ms_source"] = "profiler" if dev_ms is not None else "not measured"
+            row[tag + "call_ms"] = call_ms
+            row[tag + "plan"] = plan_text(eval_plan_of(prog, K, variant))
+        eval_shapes.append(row)
+        log(f"[portfolio] portfolio_eval at {row['shape']}: kernel {ms_text(row['ms'])} "
+            f"({row['plan']}; {row['call_ms']:.4f} ms a call between events), global "
+            f"variant {ms_text(row['global_ms'])}, plain {plain_ms:.1f} ms (CPU), bound "
+            f"{bound:.4f} ms by {by} ({count['ops']:,} int32 ops, {io_bytes:,} B in and out) "
+            f"on {card}")
+    enum_row = eval_shapes[0]
     # what the kernels replace: the plain version's PyTorch ops for one
     # evaluation of this program (each a launch on the card), and at the
     # host's dispatch time per launch, a first pass of the search (192
     # steps, 194 evaluations) eagerly
-    small = tuple(a[..., :64, :] if a.dim() == 3 else a for a in cpu_args)
+    small = pe.program_tensors(prog, "cpu") + (torch.as_tensor(rand_X(prog, 64)),)
     eager_ops = aten_ops(lambda: pe.eval_plain(*small, n_nodes=prog.n_real_nodes))
     first_pass = eager_ops * FIRST_PASS_EVALS
     log(f"[portfolio] the plain version runs {eager_ops} PyTorch ops per evaluation of "
         f"this program at K=64: {first_pass:,} launches for one query's first pass, "
         f"{first_pass * DISPATCH_US[0] / 1e6:.1f} s at this host's {DISPATCH_US[0]:.2f} us "
         f"per trivial launch on {card}")
-    io_bytes = X.size * 4 + sum(a.numel() * 4 for a in card_args[:7]) + ENUM_K * 8
-    eval_bound, eval_by = work_bound(count, io_bytes)
-    log(f"[portfolio] portfolio_eval at K={ENUM_K}, {prog.n_real_nodes} nodes, L {prog.limbs}: "
-        f"kernel {eval_ms:.4f} ms, plain {eval_plain_ms:.1f} ms (CPU), bound {eval_bound:.4f} "
-        f"ms by {eval_by} ({count['ops']:,} int32 ops, {io_bytes:,} B in and out) on {card}")
 
-    # portfolio_sls: Q programs in one launch, bit-equal at a short budget;
-    # the solving and the synthetic programs also past 256 candidates,
-    # where a thread searches more than one (at every L)
+    # portfolio_sls: Q programs in one launch, bit-equal at a short budget,
+    # under the plan's choice, the global variant and each cluster size
     knobs = dict(pf.PORTFOLIO_DEFAULTS)
-    sls_bad = sls_err = 0
+    sls_bad = sls_err = restarts = 0
     sls_rows = []
-    groups = [("frontier", list(frontier_progs), SLS_CHECK_K[:1])] if frontier_progs else []
-    groups += [("solving", solving, SLS_CHECK_K)]
-    groups += [("synthetic", [p], SLS_CHECK_K[:2]) for p in synthetic_programs()]
-    for label, group, ks in groups:
+    forced = [("global", None)] + [(None, c) for c in ps.CLUSTER_SIZES]
+    groups = [("frontier", list(frontier_progs), SLS_CHECK_K[:1], knobs)] if frontier_progs \
+        else []
+    # the cube fan's programs, as the flip phase's second launch builds
+    # them (rank_impact_vars on the card, then the cubes' extra
+    # constraints on each root)
+    cubes = cube_programs(list(frontier_progs)) if frontier_progs else []
+    if cubes:
+        groups.append(("cube fan", cubes, SLS_CHECK_K[:1], knobs))
+    groups += [("solving", solving, SLS_CHECK_K, knobs)]
+    groups += [("synthetic", [p], SLS_CHECK_K[:2], knobs) for p in synthetic]
+    # the Luby restarts inside the budget: frontier and wide synthetic
+    # programs (no early solve) with a small restart unit
+    restart_progs = [("frontier", list(frontier_progs))] if frontier_progs else []
+    restart_progs += [(f"synthetic L={p.limbs}", [p]) for p in synthetic if p.limbs in (16, 64)]
+    for base in RESTART_BASES:
+        for label, group in restart_progs:
+            groups.append((f"{label}, restart_base {base}", group, SLS_CHECK_K[:1],
+                           dict(knobs, restart_base=base)))
+    for label, group, ks, kn in groups:
         card_in = pf.stack_programs(group, "cuda")
         cpu_in = pf.stack_programs(group, "cpu")
         for K in ks:
-            got = ps.portfolio_sls(*card_in, seed=7, steps=SLS_CHECK_STEPS, K=K, knobs=knobs)
             count = {}
             t0 = time.perf_counter()
             want = ps.sls_plain(*cpu_in, seed=7, steps=SLS_CHECK_STEPS, K=K, count=count,
-                                **ps.search_args(K, knobs))
+                                **ps.search_args(K, kn))
             plain_ms = (time.perf_counter() - t0) * 1e3
-            sync()
-            bad = sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
+            restarts += count.get("restarts", 0)
+            bad = 0
+            plans = []
+            for variant, cluster in [(None, None)] + forced:
+                with plan_forced(ps, variant, cluster):
+                    got = ps.portfolio_sls(*card_in, seed=7, steps=SLS_CHECK_STEPS, K=K,
+                                           knobs=kn)
+                sync()
+                bad += sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
+                sls_err = max([sls_err] + [int((g.cpu().long() - w.long()).abs().max())
+                                           for g, w in zip(got[1:], want[1:])])
+                plans.append(plan_text(held(sls_stack_plan(group, K, variant, cluster))))
+                if variant is None and cluster is None:
+                    steps, solved = got[2].tolist(), got[0].tolist()
             sls_bad += bad
-            sls_err = max([sls_err] + [int((g.cpu().long() - w.long()).abs().max())
-                                       for g, w in zip(got[1:], want[1:])])
-            ms = time_cuda(lambda: ps.portfolio_sls(*card_in, seed=7, steps=SLS_CHECK_STEPS, K=K,
-                                                    knobs=knobs), 5)
+            ms, call_ms = kernel_ms(
+                lambda: ps.portfolio_sls(*card_in, seed=7, steps=SLS_CHECK_STEPS, K=K,
+                                         knobs=kn), "portfolio_sls_kernel", 5)
             io_bytes = (sum(a.numel() * 4 for a in card_in) + got[1].numel() * 4
                         + 2 * 4 * len(group))
             bound, by = work_bound(count, io_bytes)
-            steps, solved = got[2].tolist(), got[0].tolist()
             sls_rows.append(dict(programs=label, q=len(group), K=K,
-                                 limbs=max(p.limbs for p in group), ms=ms, plain_ms=plain_ms,
+                                 limbs=max(p.limbs for p in group), ms=ms,
+                                 ms_source="profiler" if ms is not None else "not measured",
+                                 call_ms=call_ms, plain_ms=plain_ms,
                                  bound_ms=bound, bound_by=by, steps=steps, solved=solved,
-                                 mismatches=bad))
+                                 mismatches=bad, restarts=count.get("restarts", 0),
+                                 ops=count.get("ops", 0), plan=plans[0]))
             log(f"[portfolio] portfolio_sls {label} Q={len(group)} K={K} "
                 f"L={sls_rows[-1]['limbs']} {SLS_CHECK_STEPS} steps: {bad} mismatches (solved, "
-                f"winners, steps); solved {[int(x) for x in solved]}, steps taken {steps}; "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (CPU), bound {bound:.4f} ms by "
-                f"{by} on {card}")
+                f"winners, steps) over {len(plans)} plans [{'; '.join(plans)}]; solved "
+                f"{[int(x) for x in solved]}, steps taken {steps}, "
+                f"{count.get('restarts', 0)} restarts; kernel {ms_text(ms)} ({call_ms:.4f} ms "
+                f"a call between events), plain "
+                f"{plain_ms:.1f} ms (CPU), bound {bound:.4f} ms by {by} on {card}")
     # the checks must see the outcomes that make witnesses: a query solved
     # by a seeded lane before the first step and one solved mid-search
-    # (the early stop, the first solved lane's winner, its step count)
+    # (the early stop, the first solved lane's winner, its step count),
+    # and lanes that restarted
     at_init = sum(s and n == 0 for r in sls_rows for s, n in zip(r["solved"], r["steps"]))
     mid = sum(s and 0 < n < SLS_CHECK_STEPS for r in sls_rows
               for s, n in zip(r["solved"], r["steps"]))
     log(f"[portfolio] portfolio_sls checks: {at_init} queries solved before the first step, "
-        f"{mid} solved after 1 to {SLS_CHECK_STEPS - 1} steps")
+        f"{mid} solved after 1 to {SLS_CHECK_STEPS - 1} steps, {restarts} Luby restarts")
     if not (at_init and mid):
         raise SystemExit("the portfolio_sls checks never compared a solving search")
+    if not restarts:
+        raise SystemExit("no lane restarted in the portfolio_sls checks")
     regs = portfolio_registers()
     log(f"[portfolio] registers, spill bytes: {regs if regs else 'not measured'} "
         f"(ptxas, sm_90a) for {card}")
-    if eval_bad or sls_bad:
-        raise SystemExit(f"the portfolio kernels disagree with their plain versions: "
-                         f"eval {eval_bad}, sls {sls_bad}")
+    log(f"[portfolio] the plans' shared bytes against the kernels' layouts: {layout_bad} "
+        f"mismatches")
+    if eval_bad or sls_bad or layout_bad:
+        raise SystemExit(f"the portfolio kernels disagree with their plain versions or "
+                         f"layouts: eval {eval_bad}, sls {sls_bad}, layout {layout_bad}")
+
+    # timed only: the flip's own SLS shapes (the first pass over the
+    # frontier's queries, the cube fan over their cubes, 192 steps) and
+    # Q = OCCUPANCY_Q queries at the checks' budget. A bound at 192 steps
+    # scales the same programs' 16-step check count by the evaluations.
+    sls_shapes = []
+    log(f"[portfolio] SM clock, most, power, temperature before the timed shapes: "
+        f"{sm_clocks()}")
+
+    def time_sls(label, group, K, steps, bound=None):
+        card_in = pf.stack_programs(group, "cuda")
+        got = ps.portfolio_sls(*card_in, seed=7, steps=steps, K=K, knobs=knobs)
+        ms, call_ms = kernel_ms(
+            lambda: ps.portfolio_sls(*card_in, seed=7, steps=steps, K=K, knobs=knobs),
+            "portfolio_sls_kernel", 3)
+        taken = got[2].tolist()
+        row = dict(shape=f"{label} Q={len(group)}, K={K}, {steps} steps", ms=ms,
+                   ms_source="profiler" if ms is not None else "not measured", call_ms=call_ms,
+                   plan=plan_text(sls_stack_plan(group, K)), solved=int(got[0].sum()),
+                   steps_max=max(taken), bound_ms=bound[0] if bound else None,
+                   bound_by=bound[1] if bound else None)
+        sls_shapes.append(row)
+        log(f"[portfolio] portfolio_sls timed, {row['shape']}: {ms_text(ms)} ({row['plan']}; "
+            f"{call_ms:.4f} ms a call between events), "
+            f"{row['solved']} solved, steps taken up to {row['steps_max']}, bound "
+            f"{'%.4f ms by %s' % bound if bound else 'not counted'} on {card}")
+
+    def per_eval(label):
+        """A check group's counted operations per evaluation (K = 64)."""
+        row = next(r for r in sls_rows if r["programs"] == label)
+        return row["ops"] / (row["K"] * sum(n + 2 for n in row["steps"]))
+
+    if frontier_progs:
+        evals = lambda q, K: q * K * (FLIP_STEPS + 2)  # noqa: E731
+        time_sls("frontier", list(frontier_progs), 64, FLIP_STEPS,
+                 (per_eval("frontier") * evals(len(frontier_progs), 64) / INT32_OPS_PER_S
+                  * 1e3, "operations (scaled)"))
+        if cubes:
+            time_sls("cube fan", cubes, 64, FLIP_STEPS,
+                     (per_eval("cube fan") * evals(len(cubes), 64) / INT32_OPS_PER_S * 1e3,
+                      "operations (scaled)"))
+        # the occupancy question on its own: the frontier's queries (which
+        # run every step) cycled to OCCUPANCY_Q, against Q = 4 above
+        time_sls("frontier cycled", cycled(list(frontier_progs), OCCUPANCY_Q), 64,
+                 SLS_CHECK_STEPS,
+                 (per_eval("frontier") * OCCUPANCY_Q * 64 * (SLS_CHECK_STEPS + 2)
+                  / INT32_OPS_PER_S * 1e3, "operations (scaled)"))
+    narrow = [p for p in progs if p.limbs == 16]
+    occ = cycled(narrow, OCCUPANCY_Q)
+    cpu_in = pf.stack_programs(occ, "cpu")
+    count = {}
+    want = ps.sls_plain(*cpu_in, seed=7, steps=SLS_CHECK_STEPS, K=64, count=count,
+                        **ps.search_args(64, knobs))
+    got = ps.portfolio_sls(*pf.stack_programs(occ, "cuda"), seed=7, steps=SLS_CHECK_STEPS,
+                           K=64, knobs=knobs)
+    sync()
+    occ_bad = sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
+    io_bytes = sum(a.numel() * 4 for a in cpu_in) + got[1].numel() * 4 + 8 * len(occ)
+    time_sls(f"{len(narrow)} L=16 programs cycled", occ, 64, SLS_CHECK_STEPS,
+             work_bound(count, io_bytes))
+    sls_shapes[-1]["mismatches"] = occ_bad
+    if occ_bad:
+        raise SystemExit(f"portfolio_sls at Q={OCCUPANCY_Q}: {occ_bad} mismatches")
+
+    log(f"[portfolio] SM clock, most, power, temperature after the timed shapes: "
+        f"{sm_clocks()}")
     main = sls_rows[0]
+    if enum_row["ms"] is None or main["ms"] is None:
+        raise SystemExit("the profiler saw no portfolio kernel at the kernels line's shapes")
     return {
-        "portfolio_eval": dict(mismatches=eval_bad, max_abs_err=eval_err, kernel_ms=eval_ms,
-                               plain_ms=eval_plain_ms, bound_ms=eval_bound, bound_by=eval_by,
-                               library_ms=None, plain_device="cpu", shape=f"K={ENUM_K}, "
-                               f"{prog.n_real_nodes} nodes, L={prog.limbs}",
-                               checked_candidates=eval_cases, registers=regs),
+        "portfolio_eval": dict(mismatches=eval_bad, max_abs_err=eval_err,
+                               kernel_ms=enum_row["ms"], plain_ms=enum_row["plain_ms"],
+                               bound_ms=enum_row["bound_ms"], bound_by=enum_row["bound_by"],
+                               library_ms=None, plain_device="cpu", shape=enum_row["shape"],
+                               plan=enum_row["plan"], checked_candidates=eval_cases,
+                               registers=regs, shapes=eval_shapes),
         "portfolio_sls": dict(mismatches=sls_bad, max_abs_err=sls_err, kernel_ms=main["ms"],
                               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                               bound_by=main["bound_by"], library_ms=None, plain_device="cpu",
                               shape=f"{main['programs']} Q={main['q']}, K={main['K']}, "
-                              f"L={main['limbs']}, {SLS_CHECK_STEPS} steps", checks=sls_rows),
+                              f"L={main['limbs']}, {SLS_CHECK_STEPS} steps", plan=main["plan"],
+                              restarts=restarts, checks=sls_rows, shapes=sls_shapes),
     }
 
 
@@ -1636,19 +1922,122 @@ def ab_windows(card):
     log(json.dumps({"card": card, "ab_windows": results}))
 
 
+def pinned_frontier_programs():
+    """The pinned wave's frontier programs, the wave run on the card: the
+    4 queries the flip phase's generation 0 solves."""
+    from mythril_tpu_torch.laser import flip_frontier as ff
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.laser.batch.arena import ArenaView
+    from mythril_tpu_torch.laser.batch.symbolic import sym_run
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+    from mythril_tpu_torch.laser.smt.solver.preprocess import lower
+
+    settings = wave.load_pinned()["settings"]
+    symb, table = wave.make_wave(settings["stripes"], settings["lanes_per_stripe"])
+    out, _, _ = sym_run(symb, table, max_steps=settings["max_steps"])
+    code_ids, _, _ = wave.wave_inputs(wave.load_contracts(), settings["stripes"],
+                                      settings["lanes_per_stripe"])
+    view, tracks, by_contract = ArenaView(out), {}, ff.lanes_by_contract(code_ids)
+    ff.harvest(view, tracks, by_contract)
+    cands, _, _ = ff.collect_candidates(view, tracks, by_contract)
+    lowered, _ = ff.lower_flips([conds for _, _, conds, _ in cands], lower)
+    progs = [pf.compile_program_relaxed(lw)[0] for lw in lowered]
+    return [p for p in progs if p is not None and p.var_slots]
+
+
+def portfolio_times(label):
+    """Both portfolio kernels of the package on sys.path, on the pinned
+    frontier's programs at the flip's shapes: one JSON line of device ms
+    (torch.profiler) and ms a call between CUDA events, each after a warm
+    call."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+    from mythril_tpu_torch.native import build
+    from mythril_tpu_torch.ops import portfolio_eval as pe
+    from mythril_tpu_torch.ops import portfolio_sls as ps
+
+    build.build()
+    progs = pinned_frontier_programs()
+    prog = max(progs, key=lambda p: p.n_real_nodes)
+    rng = np.random.default_rng(4)
+    out = {"label": label, "package": str(Path(pe.__file__).resolve().parents[1]),
+           "programs": [p.n_real_nodes for p in progs]}
+    for K in (ENUM_K, (len(prog.var_slots) + 1) * RANK_PROBES, RANK_PROBES):
+        X = rng.integers(0, 1 << 16, (len(prog.var_slots), K, prog.limbs))
+        for v, (_n, w) in enumerate(prog.var_slots):
+            X[v] &= np.array(pe.width_mask(w, prog.limbs))[None, :]
+        args = pe.program_tensors(prog, "cuda") + (torch.as_tensor(X, device="cuda"),)
+        out[f"eval K={K}"] = kernel_ms(
+            lambda: pe.portfolio_eval(*args, n_nodes=prog.n_real_nodes),
+            "portfolio_eval_kernel", 10)
+    knobs = dict(pf.PORTFOLIO_DEFAULTS)
+    cubes = cube_programs(progs)
+    for name, group, steps in (("sls Q=4 16 steps", progs, SLS_CHECK_STEPS),
+                               ("sls Q=4 192 steps", progs, FLIP_STEPS),
+                               (f"sls cube fan Q={len(cubes)} 192 steps", cubes, FLIP_STEPS)):
+        stacked = pf.stack_programs(group, "cuda")
+        out[name] = kernel_ms(lambda: ps.portfolio_sls(*stacked, seed=7, steps=steps, K=64,
+                                                       knobs=knobs),
+                              "portfolio_sls_kernel", 3)
+    sync()
+    print(json.dumps(out), flush=True)
+
+
+def ab_portfolio(card, parent):
+    """The portfolio kernels of a parent checkout (`parent`, unpacked
+    beside this one) against this checkout's, each in its own process on
+    this card, in the order parent, change, change, parent."""
+    rows = []
+    for label, root in (("parent", parent), ("change", str(ROOT)), ("change", str(ROOT)),
+                        ("parent", parent)):
+        done = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--portfolio-times", root, label],
+                              capture_output=True, text=True, timeout=900)
+        if done.returncode != 0:
+            raise SystemExit(f"--portfolio-times {root} failed:\n{done.stdout}{done.stderr}")
+        rows.append(json.loads(done.stdout.strip().splitlines()[-1]))
+        log(f"[ab] {label} ({root}): " + ", ".join(
+            f"{k} {v[0]:.4f} ms [{v[1]:.4f} a call]" for k, v in rows[-1].items()
+            if k.startswith(("eval", "sls")) and v[0] is not None))
+    log(json.dumps({"card": card, "ab_portfolio": rows}))
+
+
+def checkout_dir(path: str) -> str:
+    """`path` resolved, where it is this checkout or a directory under its
+    git-ignored `_archive/` (a parent unpacked with `git archive`); any
+    other directory is refused, so the A/B modes import and build no
+    package from outside the checkout."""
+    p = Path(path).resolve()
+    if p != ROOT and ROOT / "_archive" not in p.parents:
+        raise SystemExit(f"chip_smoke.py: {path} is neither this checkout nor a directory "
+                         f"under {ROOT / '_archive'}")
+    return str(p)
+
+
 def main() -> int:
     args = sys.argv[1:]
     if not (ROOT / "mythril_tpu_torch" / "__init__.py").exists():
         print("chip_smoke.py: run from a checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    # --portfolio-times ROOT LABEL times the package of this checkout or of
+    # one unpacked under _archive/
+    package_root = checkout_dir(args[1]) if args[:1] == ["--portfolio-times"] else str(ROOT)
+    sys.path.insert(0, package_root)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
 
+    if args[:1] == ["--portfolio-times"]:
+        portfolio_times(args[2])
+        return 0
     kind, card = phase_device()
+    if args[:1] == ["--ab-portfolio"]:
+        ab_portfolio(card, checkout_dir(args[1]))
+        return 0
     phase_build()
     sync()
     if args == ["--ab-host-reads"]:
@@ -1691,7 +2080,7 @@ def main() -> int:
                        "tools/pallas_stack_probe.py:62"),
         "portfolio_eval": ("mythril_tpu_torch/csrc/portfolio.cu",
                            "mythril_tpu/laser/smt/solver/portfolio.py:517"),
-        "portfolio_sls": ("mythril_tpu_torch/csrc/portfolio.cu",
+        "portfolio_sls": ("mythril_tpu_torch/csrc/portfolio_sls.cu",
                           "mythril_tpu/laser/smt/solver/portfolio.py:635"),
     }
     report = {"kernels": [{

@@ -20,7 +20,8 @@ and the SHA3 sponge of the step (csrc/keccak_f.cu, bound in
 ops/keccak_cuda.py), the per-lane slot write of one table or of up
 to 8 tables that share an index (csrc/slot_write.cu, bound in
 ops/slot_write.py), and the portfolio solver's program evaluation and
-local search (csrc/portfolio.cu, bound in ops/portfolio_eval.py and
+local search (csrc/portfolio.cu and csrc/portfolio_sls.cu over
+csrc/portfolio.cuh, bound in ops/portfolio_eval.py and
 ops/portfolio_sls.py).
 """
 

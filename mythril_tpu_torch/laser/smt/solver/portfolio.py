@@ -6,7 +6,7 @@ after `preprocess.lower`) compiles to a flat tensor program over 16-bit
 limbs (`compile_program`), evaluated on the card for K candidate
 assignments at once (ops/portfolio_eval.py) by a diversified stochastic
 local search (ops/portfolio_sls.py), both hand-written CUDA kernels
-(csrc/portfolio.cu). A found witness is decoded on the host and
+(csrc/portfolio.cu, csrc/portfolio_sls.cu). A found witness is decoded on the host and
 re-checked against every source constraint (`validate_witness`), so a
 SAT answer is certain; the absence of a witness proves nothing, except
 where a complete program's whole variable space was enumerated
@@ -453,7 +453,7 @@ def bucket_key(prog: Program) -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# device interpreter + local search (csrc/portfolio.cu)
+# device interpreter + local search (csrc/portfolio.cu, portfolio_sls.cu)
 # ---------------------------------------------------------------------------
 
 
@@ -514,12 +514,14 @@ def _decode_assignment(
 def stack_programs(progs: List[Program], device) -> List[torch.Tensor]:
     """The `portfolio_sls` operands of Q programs, int32 tensors on
     `device`: every stacked axis padded to the max bucket over the batch
-    (nodes, constants, roots, a var bucket of 4, limbs), then each
-    query's real var, constant and node counts. Padding var slots are
-    width 1 and never mutated: the search draws only the query's real
-    vars, and polarity seeding and the injection move only its real
+    (constants, roots, a var bucket of 4, limbs) and the node axis to
+    the largest real node count (no node past a program's own count is
+    evaluated, and the kernel's launch is planned for that axis), then
+    each query's real var, constant and node counts. Padding var slots
+    are width 1 and never mutated: the search draws only the query's
+    real vars, and polarity seeding and the injection move only its real
     constants."""
-    N = max(p.opcodes.shape[0] for p in progs)
+    N = max(max(p.n_real_nodes for p in progs), 1)
     C = max(p.const_pool.shape[0] for p in progs)
     R = max(p.roots.shape[0] for p in progs)
     V = _bucket(max(len(p.var_slots) for p in progs), 4)
@@ -538,10 +540,10 @@ def stack_programs(progs: List[Program], device) -> List[torch.Tensor]:
         return torch.as_tensor([getter(p) for p in progs], dtype=torch.int32, device=device)
 
     return [
-        stack(lambda p: p.opcodes, (N,)),
-        stack(lambda p: p.args, (N, 3)),
-        stack(lambda p: p.imms, (N, 2)),
-        stack(lambda p: p.widths, (N,), fill=1),
+        stack(lambda p: p.opcodes[:N], (N,)),
+        stack(lambda p: p.args[:N], (N, 3)),
+        stack(lambda p: p.imms[:N], (N, 2)),
+        stack(lambda p: p.widths[:N], (N,), fill=1),
         stack(lambda p: p.const_pool, (C, L)),
         stack(lambda p: p.roots, (R,)),
         stack(lambda p: p.roots_mask, (R,)),
@@ -619,11 +621,25 @@ def rank_impact_vars(
     if V == 0:
         return []
     if V > 64 or prog.n_real_nodes > 512:
-        # gradient probing costs one program eval per var; past this
-        # var count -- or on programs big enough that each eval is
+        # gradient probing evaluates (V + 1) x probes candidates; past
+        # this var count -- or on programs big enough that each eval is
         # itself expensive -- fall back to reference counting
         return _occurrence_rank(prog)
-    dev = resolve_device(device)
+    base, moved = impact_scores(prog, probes, seed, device)
+    impact = np.abs(moved - base[None, :]).mean(axis=1)
+    return list(np.argsort(-impact, kind="stable"))
+
+
+def impact_scores(prog: Program, probes: int = 16, seed: int = 11,
+                  device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """`rank_impact_vars`' probe scores: (base int64 [probes], moved int64
+    [V, probes]), the soft scores of a probe batch of random assignments
+    and of the same batch with variable v re-randomized. The base batch
+    and the V re-randomized ones are stacked along K, [V, (V + 1) probes,
+    L], and scored in one portfolio_eval call; the numpy draws come in
+    the order of the JAX package's loop (one batch, then one row per
+    variable)."""
+    V = len(prog.var_slots)
     rng = np.random.RandomState(seed)
     L = prog.limbs
     K = probes
@@ -637,16 +653,13 @@ def rank_impact_vars(
     # clamp to var widths
     for v, (_n, w) in enumerate(prog.var_slots):
         X[v] &= _width_mask_np(w, L)[None, :]
-    _, base = _score(prog, X, dev)
-    impact = np.zeros(V, dtype=np.float64)
+    batch = np.concatenate([X] * (V + 1), axis=1)
     for v in range(V):
-        X2 = X.copy()
         row = rand_rows(1)[0]
         row &= _width_mask_np(prog.var_slots[v][1], L)[None, :]
-        X2[v] = row
-        _, s2 = _score(prog, X2, dev)
-        impact[v] = np.abs(s2 - base).mean()
-    return list(np.argsort(-impact, kind="stable"))
+        batch[v, (v + 1) * K:(v + 2) * K] = row
+    _, scores = _score(prog, batch, resolve_device(device))
+    return scores[:K], scores[K:].reshape(V, K)
 
 
 def _occurrence_rank(prog: Program) -> List[int]:

@@ -53,7 +53,10 @@ def lib_path(stem: str) -> Path:
 
 
 def _digest(src: Path) -> str:
-    return hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The hash of a source, the headers beside it (csrc/*.cuh) and the
+    flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    return hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
 
 
 def _fresh(stem: str) -> bool:

@@ -14,7 +14,13 @@ bool word, 0..FULL per constraint).
 `portfolio_eval(...)` runs the plain PyTorch version (`eval_plain`) on
 a CPU tensor and launches the kernel on a CUDA tensor, or raises; it
 never moves a CUDA tensor to the plain path. `LAUNCHES` counts kernel
-launches.
+launches. The launch takes the plan `eval_plan` makes from the real node
+count, L, K and V: blocks of up to 32 candidates, GROUP = 4 threads
+sharing each candidate's limbs, with the program, the block's tile of X
+and the node values in shared memory, or, where they
+do not fit the 227 KB a block may hold, the global variant (node values
+in device-memory scratch). A launch the card refuses raises; it never
+falls back to the other variant or to the plain version.
 
 The plain version computes with the port's u256 limb arithmetic
 (ops/u256.py, width-generic, as the JAX evaluator calls its own u256)
@@ -58,10 +64,86 @@ def _kernel_fn():
     if _FN is None:
         fn = build.load("portfolio").portfolio_eval
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, i, i] + [p] * 11 + [p]
+        fn.argtypes = [i] * 10 + [p] * 11 + [p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def kernel_smem_bytes(n: int, L: int, V: int, C: int, R: int, slots: int) -> int:
+    """The kernel's own count of `eval_smem_bytes` (csrc/portfolio.cu
+    :eval_layout, which the C entry holds a launch's bytes to); needs the
+    built library."""
+    fn = build.load("portfolio").portfolio_eval_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_int
+    return fn(L, n, V, C, R, slots)
+
+
+# ---------------------------------------------------------------------------
+# the launch plan (csrc/portfolio.cuh and portfolio.cu:eval_layout lay out
+# the same shared regions; chip_smoke.py holds the two counts equal)
+# ---------------------------------------------------------------------------
+
+# dynamic shared memory a block may use on an H100 (227 KB), and the rows
+# a candidate's node values take beyond the program's nodes: a zero row,
+# the search's backup row, the division's remainder and trial rows
+SMEM_LIMIT = 232448
+SCRATCH_ROWS = 4
+NODE_BYTES = 32  # a staged node: 8 ints
+GROUP = 4  # threads that share one candidate's evaluation (csrc: kGroup)
+SLOT_QUANTUM = 32 // GROUP  # a block's candidates come in whole warps
+EVAL_SLOTS = (32, 16, 8)  # portfolio_eval's candidates a block, largest first
+# checks only: {"variant": "shared" | "global"} forces the plan's variant
+PLAN_OVERRIDE: dict = {}
+
+
+def slots_for(n: int) -> int:
+    """n candidate slots rounded up to whole warps."""
+    return -(-max(n, 1) // SLOT_QUANTUM) * SLOT_QUANTUM
+
+
+def align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def program_smem(n: int, C: int, R: int, L: int) -> int:
+    """Shared bytes of a staged program: n nodes, the pool [C, L] as
+    uint16, R roots."""
+    return align16(n * NODE_BYTES) + align16(C * L * 2) + align16(R * 4)
+
+
+def value_rows_smem(n: int, L: int, slots: int) -> int:
+    """Shared bytes of `slots` candidates' value rows (uint16 limbs)."""
+    return align16(slots * (n + SCRATCH_ROWS) * L * 2)
+
+
+def eval_smem_bytes(n: int, L: int, V: int, C: int, R: int, slots: int) -> int:
+    """portfolio_eval's shared bytes at `slots` candidates a block: the
+    program, the block's tile of X [V, L, slots] and the value rows."""
+    return (program_smem(n, C, R, L) + align16(V * L * slots * 2)
+            + value_rows_smem(n, L, slots))
+
+
+def eval_plan(n: int, L: int, K: int, V: int, C: int, R: int, variant=None) -> dict:
+    """portfolio_eval's launch: blocks of `slots` candidates, GROUP threads
+    each (32 candidates where K allows, so that K = 4096 spreads over the
+    card), the shared variant with the largest block of EVAL_SLOTS whose
+    bytes fit SMEM_LIMIT, else the global variant (node values in
+    device-memory scratch). `variant` ("shared" or "global") forces one;
+    a forced shared variant that does not fit raises."""
+    variant = variant or PLAN_OVERRIDE.get("variant")
+    K = max(K, 1)
+    if variant != "global":
+        for T in EVAL_SLOTS:
+            T = min(T, slots_for(K))
+            smem = eval_smem_bytes(n, L, V, C, R, T)
+            if smem <= SMEM_LIMIT:
+                return dict(variant="shared", slots=T, blocks=-(-K // T), smem=smem)
+        if variant == "shared":
+            raise ValueError(f"portfolio_eval: a {n}-node program at L={L}, V={V} does not fit "
+                             f"{SMEM_LIMIT} B of shared memory")
+    T = min(EVAL_SLOTS[0], slots_for(K))
+    return dict(variant="global", slots=T, blocks=-(-K // T), smem=0)
 
 
 # ---------------------------------------------------------------------------
@@ -121,16 +203,17 @@ def _bool_word(hard, soft, K, L, device):
 
 
 # int32 operations a candidate spends on one node in the kernel's
-# loops, per limb (udiv/urem add DIV_OPS_PER_BIT per numerator bit, mul
-# one multiply-add per partial product); a bound's operation count
+# loops, per limb (udiv/urem add `div_ops_per_bit` per step of the
+# division, `div_steps`; mul one multiply-add per partial product); a
+# bound's operation count
 _OPS_PER_LIMB = {CONST: 2, VAR: 2, ZEXT: 2, NOT: 2, AND: 2, OR: 2, XOR: 2, ITE: 2,
                  ADD: 4, SUB: 4, SEXT: 4, MUL: 3, UDIV: 2, UREM: 2, SHL: 7, LSHR: 7,
                  EXTRACT: 6, CONCAT: 7, ASHR: 12, EQ: 3, ULT: 2, ULE: 2, SLT: 4, SLE: 4}
 
 
 def div_ops_per_bit(L: int) -> int:
-    """One numerator bit of udiv/urem: shift, compare and conditional
-    subtract over L + 1 limbs."""
+    """One step of udiv/urem: shift, compare and conditional subtract
+    over L + 1 limbs."""
     return 4 * (L + 1) + 3
 
 
@@ -151,15 +234,25 @@ def _bit_length(x):
     return torch.where(limb_bits > 0, weight + limb_bits, 0).max(-1).values
 
 
+def div_steps(a, b):
+    """The steps a division a / b needs (int64 [K] of [K, L] limbs): one
+    per quotient bit, bitlen(a) - bitlen(b) + 1, from the first numerator
+    bit at which the remainder can reach the divisor; none where b = 0
+    (x / 0 is 0) or a has fewer bits than b (the quotient is 0, the
+    remainder a)."""
+    steps = torch.clamp(_bit_length(a) - _bit_length(b) + 1, min=0)
+    return torch.where((b != 0).any(-1), steps, 0)
+
+
 def eval_values(prog, X, n_nodes=None, count=None):
     """Every node's value for every candidate: a list of int32 [K, L].
 
     `prog` = (opcodes, args, imms, widths, pool) as host lists or tensors
     (pool [C, L]); X int [V, K, L]. Nodes past `n_nodes` (padding) are
-    not evaluated. `count`, a dict, gains the int32 operations the
-    kernel does for this evaluation ("ops": `node_ops` per node and
-    candidate, plus `div_ops_per_bit` per numerator bit of each udiv and
-    urem)."""
+    not evaluated. `count`, a dict, gains the int32 operations this
+    evaluation needs ("ops": `node_ops` per node and candidate, plus
+    `div_ops_per_bit` per step of each udiv and urem, `div_steps` of its
+    operands)."""
     opcodes, args, imms, widths, pool = prog
     opcodes, args, imms, widths = (x.tolist() if torch.is_tensor(x) else list(x)
                                    for x in (opcodes, args, imms, widths))
@@ -252,8 +345,8 @@ def eval_values(prog, X, n_nodes=None, count=None):
         vals.append(out & _node_mask_tensor(w, L, dev))
         if count is not None:
             ops = node_ops(op, L) * K
-            if op in (UDIV, UREM) and not bool((b == 0).all(-1).all()):
-                ops += int((_bit_length(a) * (b != 0).any(-1)).sum()) * div_ops_per_bit(L)
+            if op in (UDIV, UREM):
+                ops += int(div_steps(a, b).sum()) * div_ops_per_bit(L)
             count["ops"] = count.get("ops", 0) + ops
     return vals
 
@@ -302,11 +395,20 @@ def portfolio_eval(opcodes, args, imms, widths, pool, roots, roots_mask, X, n_no
     ins = [t.to(torch.int32).contiguous()
            for t in (opcodes, args, imms, widths, pool, roots, roots_mask, X)]
     dev = X.device
-    vals = torch.empty(max(n_nodes, 1) * L * K, dtype=torch.int32, device=dev)
+    C, R = pool.shape[0], roots.shape[0]
+    plan = eval_plan(n_nodes, L, K, V, C, R)
+    rows = (n_nodes + SCRATCH_ROWS) * L * plan["blocks"] * plan["slots"]
+    if rows >= 1 << 31 or V * K * L >= 1 << 31:
+        raise ValueError(f"portfolio_eval: K={K} candidates of a {n_nodes}-node program at "
+                         f"L={L} overflow the kernel's int32 indices")
+    # the global variant's value rows [n + 4, L, blocks x slots]
+    vals = torch.empty(rows if plan["variant"] == "global" else 1, dtype=torch.int32,
+                       device=dev)
     solved = torch.empty(K, dtype=torch.int32, device=dev)
     score = torch.empty(K, dtype=torch.int32, device=dev)
     if K:
-        build.launch(_kernel_fn(), X.get_device(), L, n_nodes, roots.shape[0], K,
+        build.launch(_kernel_fn(), X.get_device(), L, n_nodes, R, K, N, C, V,
+                     int(plan["variant"] == "shared"), plan["slots"], plan["smem"],
                      *(t.data_ptr() for t in ins), vals.data_ptr(), solved.data_ptr(),
                      score.data_ptr())
         LAUNCHES += 1

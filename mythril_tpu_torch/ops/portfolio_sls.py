@@ -1,6 +1,6 @@
 """The diversified stochastic local search over Q compiled programs in
 one call, through the hand-written CUDA kernel `portfolio_sls`
-(csrc/portfolio.cu).
+(csrc/portfolio_sls.cu).
 
 The port's counterpart of `search` in the JAX package's
 laser/smt/solver/portfolio.py (:635-812) under `_sls_batch`'s vmap
@@ -26,7 +26,13 @@ verdict level.
 
 `portfolio_sls(...)` runs the plain version (`sls_plain`) on CPU
 tensors and launches the kernel on CUDA tensors, or raises. `LAUNCHES`
-counts kernel launches.
+counts kernel launches. The launch takes the plan `sls_plan` makes from
+the stacked node axis N (`stack_programs` ends it at the largest real
+node count), L, K and V: each query's K candidates spread over a
+thread-block cluster of 1-8 blocks,
+GROUP = 4 threads sharing each candidate's evaluation, with the program,
+the candidates and the node values in shared memory, or, where they do
+not fit, the global variant.
 """
 
 from __future__ import annotations
@@ -47,6 +53,14 @@ INIT_STEP = 0xFFFFFFFF  # the step index of the initial pool's draws
 INIT_DRAW = 8  # the initial pool's draw of (variable v, limb l): 8 + v L + l
 RESTARTED = -(1 << 30)  # a restarted lane's score: its next move is taken
 STATE_ROWS = 5  # a candidate's search state in the kernel: score, best, stall, Luby u, v
+CTL_BYTES = 32  # a search block's control words: solved flags, argmax, winner
+CLUSTER_SIZES = (1, 2, 4, 8)  # blocks a query's cluster may take (8: the portable most)
+# candidates a search block may search at once (GROUP threads each), by L
+# (csrc/portfolio.cuh: sls_max_slots)
+MAX_SLOTS = {16: 64, 32: 64, 64: 32, 128: 32}
+# checks only: {"variant": "shared" | "global", "cluster": 1 | 2 | 4 | 8}
+# forces the plan's choice
+PLAN_OVERRIDE: dict = {}
 
 _FN = None
 
@@ -54,16 +68,82 @@ _FN = None
 def _kernel_fn():
     global _FN
     if _FN is None:
-        fn = build.load("portfolio").portfolio_sls
+        fn = build.load("portfolio_sls").portfolio_sls
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] * 7 + [p] * 12 + [ctypes.c_uint32, i, i, i, i] + [p] * 7 + [p]
+        fn.argtypes = [i] * 7 + [p] * 12 + [ctypes.c_uint32] + [i] * 9 + [p] * 5 + [p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
+def kernel_smem_bytes(n: int, L: int, V: int, C: int, R: int, slots: int, per_block: int,
+                      shared: bool) -> int:
+    """The kernel's own count of `sls_smem_bytes` (csrc/portfolio_sls.cu
+    :sls_layout, which the C entry holds a launch's bytes to); needs the
+    built library."""
+    fn = build.load("portfolio_sls").portfolio_sls_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_int
+    return fn(L, n, V, C, R, slots, per_block, int(shared))
+
+
 # ---------------------------------------------------------------------------
-# the counter-based generator (csrc/portfolio.cu computes the same)
+# the launch plan (csrc/portfolio_sls.cu:sls_layout lays out the same
+# shared regions; chip_smoke.py holds the two counts equal)
+# ---------------------------------------------------------------------------
+
+
+def sls_smem_bytes(n: int, L: int, V: int, C: int, R: int, slots: int, per_block: int,
+                   shared: bool) -> int:
+    """portfolio_sls's shared bytes for a block of `slots` candidate slots
+    (GROUP threads each) and `per_block` candidates: the variable widths,
+    the search state, the argmax's scratch and the control words; in the
+    shared variant also the staged program, the candidates [V, L,
+    per_block] and the slots' value rows (uint16)."""
+    al = pe.align16
+    common = (al(V * 4) + al(STATE_ROWS * per_block * 4) + al(slots * pe.GROUP * 8)
+              + CTL_BYTES)
+    if not shared:
+        return common
+    return (pe.program_smem(n, C, R, L) + common + al(V * L * per_block * 2)
+            + pe.value_rows_smem(n, L, slots))
+
+
+def sls_plan(n: int, L: int, K: int, V: int, C: int, R: int, variant=None,
+             cluster=None) -> dict:
+    """portfolio_sls's launch for one query of K candidates: a cluster of
+    `cluster` blocks, `slots` candidates a block at once (whole warps of
+    GROUP threads a slot), each slot searching `per_thread` candidates in
+    turn (`per_block` = slots x per_thread; candidate k = rank x
+    per_block + j x slots + slot). The fewest candidates a slot first,
+    then the smallest cluster, under MAX_SLOTS[L] and SMEM_LIMIT: the
+    shared variant where any such shape fits, else the global variant.
+    `variant` and `cluster` force the plan's choice (a forced shape that
+    does not fit raises)."""
+    variant = variant or PLAN_OVERRIDE.get("variant")
+    cluster = cluster or PLAN_OVERRIDE.get("cluster")
+    sizes = (cluster,) if cluster else CLUSTER_SIZES
+    if cluster not in (None,) + CLUSTER_SIZES:
+        raise ValueError(f"portfolio_sls: a cluster of {cluster} blocks")
+    K = max(K, 1)
+    for shared in ((True,) if variant == "shared" else (False,) if variant == "global"
+                   else (True, False)):
+        for m in range(1, K + 1):
+            for cs in sizes:
+                per_block = -(-K // cs)
+                T = pe.slots_for(-(-per_block // m))
+                # a block left without a candidate only where the cluster is forced
+                if T > MAX_SLOTS[L] or (not cluster and cs > 1 and (cs - 1) * T * m >= K):
+                    continue
+                smem = sls_smem_bytes(n, L, V, C, R, T, T * m, shared)
+                if smem <= pe.SMEM_LIMIT:
+                    return dict(variant="shared" if shared else "global", cluster=cs,
+                                slots=T, per_thread=m, per_block=T * m, smem=smem)
+    raise ValueError(f"portfolio_sls: no launch fits K={K} candidates of a {n}-node program "
+                     f"at L={L}, V={V} (variant {variant}, cluster {cluster})")
+
+
+# ---------------------------------------------------------------------------
+# the counter-based generator (csrc/portfolio_sls.cu computes the same)
 # ---------------------------------------------------------------------------
 
 
@@ -232,6 +312,8 @@ def _search_one(prog, var_widths, n_vars, n_consts, n_nodes, key, K, steps, thr,
         best = torch.maximum(best, nscore)
         stall = torch.where(improved | nsolved, 0, stall + 1)
         restart = (stall >= lub_v * restart_base) & ~nsolved
+        if count is not None:
+            count["restarts"] = count.get("restarts", 0) + int(restart.sum())
         X, cur, stall = restart_lanes(X, cur, stall, restart, bits, vmask)
         lub_u, lub_v = luby_advance(lub_u, lub_v, restart)
         it += 1
@@ -245,7 +327,8 @@ def sls_plain(opcodes, args, imms, widths, pool, roots, roots_mask, var_widths, 
               n_consts, n_nodes, *, seed, steps, K, thr, n_greedy, n_seeded, restart_base,
               count=None):
     """The plain PyTorch version of `portfolio_sls`, query by query
-    (`count`: the evaluations' work, see `portfolio_eval.eval_values`)."""
+    (`count`: the evaluations' work, see `portfolio_eval.eval_values`,
+    and under "restarts" the Luby restarts the lanes took)."""
     Q = opcodes.shape[0]
     V, L = var_widths.shape[1], pool.shape[-1]
     solved = torch.zeros(Q, dtype=torch.bool, device=pool.device)
@@ -275,7 +358,8 @@ def portfolio_sls(opcodes, args, imms, widths, pool, roots, roots_mask, var_widt
     search over Q stacked programs: opcodes [Q, N], args [Q, N, 3], imms
     [Q, N, 2], widths [Q, N], pool [Q, C, L], roots and roots_mask
     [Q, R], var_widths [Q, V], and per query the real variable, constant
-    and node counts; all int32 tensors on one device. `knobs` holds the
+    and node counts (each node count at most N: the launch is planned
+    for N nodes); all int32 tensors on one device. `knobs` holds the
     portfolio's noise_lo, noise_hi, greedy_frac, seeded_frac and
     restart_base."""
     strategy = search_args(K, knobs)
@@ -297,18 +381,27 @@ def portfolio_sls(opcodes, args, imms, widths, pool, roots, roots_mask, var_widt
     solved = torch.zeros(Q, dtype=torch.int32, device=dev)
     winners = torch.zeros((Q, V, L), dtype=torch.int32, device=dev)
     taken = torch.zeros(Q, dtype=torch.int32, device=dev)
-    # scratch: node values [Q, N, L, K], candidates [Q, V, L, K], the
-    # moved variable's old row [Q, L, K], the search state [Q, 5, K]
-    vals = torch.empty(Q * N * L * K, dtype=torch.int32, device=dev)
-    xs = torch.empty(Q * V * L * K, dtype=torch.int32, device=dev)
-    backup = torch.empty(Q * L * K, dtype=torch.int32, device=dev)
-    state = torch.empty(Q * STATE_ROWS * K, dtype=torch.int32, device=dev)
     global LAUNCHES
     if Q:
+        # the plan takes the node axis N, at least every query's count
+        plan = sls_plan(N, L, K, V, C, R)
+        G = plan["cluster"] * plan["slots"]
+        Kp = plan["cluster"] * plan["per_block"]
+        if (N + pe.SCRATCH_ROWS) * L * G >= 1 << 31 or V * L * Kp >= 1 << 31:
+            raise ValueError(f"portfolio_sls: K={K} candidates of a {N}-node program at "
+                             f"L={L} overflow the kernel's int32 indices")
+        # the global variant's scratch: candidates [Q, V, L, cluster x
+        # per_block] and each slot's value rows [Q, N + 4, L, cluster x
+        # slots]
+        on_global = plan["variant"] == "global"
+        xs = torch.empty(Q * V * L * Kp if on_global else 1, dtype=torch.int32, device=dev)
+        vals = torch.empty(Q * (N + pe.SCRATCH_ROWS) * L * G if on_global else 1,
+                           dtype=torch.int32, device=dev)
         build.launch(_kernel_fn(), pool.get_device(), L, Q, K, N, C, R, V,
                      *(t.data_ptr() for t in ins), thr.data_ptr(), seed & M32, steps,
-                     n_greedy, n_seeded, restart_base, vals.data_ptr(), xs.data_ptr(),
-                     backup.data_ptr(), state.data_ptr(), solved.data_ptr(),
-                     winners.data_ptr(), taken.data_ptr())
+                     n_greedy, n_seeded, restart_base, int(not on_global),
+                     plan["cluster"], plan["slots"], plan["per_thread"], plan["smem"],
+                     xs.data_ptr(), vals.data_ptr(), solved.data_ptr(), winners.data_ptr(),
+                     taken.data_ptr())
         LAUNCHES += 1
     return solved != 0, winners, taken

@@ -350,9 +350,9 @@ def test_eval_on_cuda_tensor_never_takes_the_plain_path(monkeypatch):
 
 
 def test_sls_on_cuda_tensor_launches_any_candidate_count(monkeypatch, sls_progs):
-    # more candidates than the kernel's 256 threads a block: the launch is
-    # reached (stubbed) with the C entry's 31 arguments, the stream aside,
-    # and scratch for every candidate's search state
+    # more candidates than a block's threads: the launch is reached
+    # (stubbed) with the C entry's 34 arguments, the stream aside, and a
+    # cluster shape that covers every candidate
     calls = []
     monkeypatch.setattr(ps.build, "on_cuda", lambda tensors, what: True)
     monkeypatch.setattr(ps.build, "launch", lambda fn, dev, *a: calls.append(a))
@@ -362,7 +362,9 @@ def test_sls_on_cuda_tensor_launches_any_candidate_count(monkeypatch, sls_progs)
     arrays[4].get_device = lambda: 0
     before = ps.LAUNCHES
     ps.portfolio_sls(*arrays, seed=7, steps=4, K=512, knobs=pp.PORTFOLIO_DEFAULTS)
-    assert ps.LAUNCHES == before + 1 and len(calls[0]) == 31 and calls[0][:3] == (16, 2, 512)
+    assert ps.LAUNCHES == before + 1 and len(calls[0]) == 34 and calls[0][:3] == (16, 2, 512)
+    cluster, slots, per_thread = calls[0][25:28]
+    assert cluster * slots * per_thread >= 512
     with pytest.raises(ValueError):
         ps.portfolio_sls(*arrays, seed=7, steps=4, K=0, knobs=pp.PORTFOLIO_DEFAULTS)
 
