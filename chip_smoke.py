@@ -6,6 +6,8 @@
                                             # phases and the wrappers' host cost
                                             # (portfolio kernels on the
                                             # solving and synthetic programs)
+    python3 chip_smoke.py --explore         # device, build, then only the
+                                            # device explorer (phase 8)
     python3 chip_smoke.py --ab-host-reads   # device, build, then only the
                                             # A/B of the u256 loops' host read
     python3 chip_smoke.py --ab-windows      # device, build, then only the
@@ -86,7 +88,33 @@ non-zero (nothing is caught):
    that failed validation (any fails the run), flips realized in the
    next generation, the stages' ms and the kernels' launches. Then the
    frontier of phase 5's 16384-lane wave in one dispatch;
-8. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
+8. device explorer (laser/batch/explore.py, DeviceCorpusExplorer): leg A
+   at the JAX package's small-corpus prepass geometry (the 13 vendored
+   contracts x 32 lanes, calldata the longest required_calldata_len,
+   mem_cap 16384, storage_cap 128, 512 steps a wave, 2 transactions, 64
+   candidates and cube depth 3 in the device-first funnel) with a fixed
+   cap of 8 waves a phase and no wall budget, first pipelined, then
+   lock-step (the default schedule) with the same seed: per wave its
+   wall, steps, active lane-steps and readback ms; per reseed the flip
+   candidates, opaque targets, queries lowered, device-solve ms,
+   verdicts by mode, witnesses (an invalid one fails the run) and
+   survivors the absent host ladder deferred; carries, poison carries,
+   wave_overlap_ratio, device_idle_frac, the kernels' launches
+   (keccak_sponge, slot_write, portfolio_eval and portfolio_sls must all
+   launch in both schedules; the kernels line's `launches_explore` is
+   the lock-step run's) and every contract's fingerprint (coverage,
+   trigger pcs by kind, evidence), whose triggers and evidence must
+   agree between the schedules (their coverage may not: the pipelined
+   schedule draws its second slot's seeds from the same RNG the
+   mutation top-up draws from); leg B at corpus scale (64 tracks
+   cycling the contracts x 16 lanes, mem_cap 4096, storage_cap 64, 4
+   waves a phase), its first wave held to the same explorer's first
+   wave on the CPU and its first batch of queries (its first 48
+   programs) held to the plain SLS and evaluation; leg C on the milestone corpus
+   (gated_kill must report a selfdestruct at pc 15 with input byte 0 =
+   0x42, always_assert an assert-violation at pc 0), its first wave held
+   to the CPU's. A degradation record after any leg fails the run;
+9. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
    own programs (the search also on the cube fan's), on queries the
    search solves (before the first step and mid-search) and on
    synthetic ones at 32 to 2048 bits (every op, L = 16 to 128), each
@@ -103,11 +131,13 @@ non-zero (nothing is caught):
    at the flip's own shapes (the first pass and the cube fan, K = 64,
    192 steps; rank_impact_vars' batch) and at Q = 128 queries;
    registers and spills from ptxas;
-9. VMTests: every vendored suite through run_cases(hybrid=False) on the
+10. VMTests: every vendored suite through run_cases(hybrid=False) on the
    card, name by name against the JAX package's pinned verdicts
    (mythril_tpu_torch/laser/vmtests_device_verdicts.json), with no
    mismatch and no "fail:";
-10. report: the `kernels` JSON line, then the result line.
+11. report: the `kernels` JSON line (each kernel's launches on every
+   path: main, symbolic wave, flip frontier, explore), then the result
+   line.
 
 After 4 it also prints where a main-path step's time goes
 (torch.profiler: CUDA kernels per step, device busy share, top kernels)
@@ -155,6 +185,8 @@ RANK_PROBES = 16  # rank_impact_vars' probe batch: it scores (V + 1) batches in 
 RESTART_BASES = (2, 4)  # the restart-forcing checks' Luby unit (the default is 24)
 FLIP_STEPS = 192  # device_solve_batch's first pass (PORTFOLIO_DEFAULTS first_pass_steps)
 OCCUPANCY_Q = 128  # queries of the timed occupancy run
+BATCH_CHECK_Q = 48  # programs of an explorer batch held to the portfolio's plain versions
+PROFILE_TRIES = 5  # profiles kernel_ms takes before it reports a kernel as not measured
 ENUM_K = 4096  # device_enumerate's chunk: portfolio_eval's timed shape
 
 # H100 SXM peaks (NVIDIA data sheet; the full 700 W power limit)
@@ -246,15 +278,16 @@ def time_cuda(fn, reps):
 def kernel_ms(fn, kernel, reps):
     """(device ms, call ms) of one call of `fn`: the mean device time of
     the CUDA kernels whose name holds `kernel`, from torch.profiler around
-    `reps` calls (a second profile where the first saw none of them; None
-    where neither did), and the median time between CUDA events around
-    one call, which also holds the wrapper's host work. The second is
-    never a stand-in for the first."""
+    `reps` calls (another profile, up to PROFILE_TRIES in all, while none
+    of them was seen: a profile sometimes records no kernel of the run;
+    None where no profile did), and the median time between CUDA events
+    around one call, which also holds the wrapper's host work. The second
+    is never a stand-in for the first."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm: the card's clocks rise under load
     call = time_cuda(fn, reps)
-    for _ in range(2):
+    for _ in range(PROFILE_TRIES):
         sync()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1346,6 +1379,22 @@ def cube_programs(progs):
     return out
 
 
+def rand_candidates(rng, prog, K):
+    """K random candidate assignments of `prog`'s vars, [V, K, L] limbs
+    inside each var's width, some high limbs and some whole candidates
+    zero."""
+    import numpy as np
+
+    from mythril_tpu_torch.ops import portfolio_eval as pe
+
+    X = rng.integers(0, 1 << 16, (len(prog.var_slots), K, prog.limbs))
+    X[:, ::4, 2:] = 0
+    X[:, 1::5, :] = 0
+    for v, (_n, w) in enumerate(prog.var_slots):
+        X[v] &= np.array(pe.width_mask(w, prog.limbs))[None, :]
+    return X
+
+
 def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
     """Both portfolio kernels held to their plain versions (run on CPU
     copies of the same inputs) on the frontier's own programs, on
@@ -1368,12 +1417,7 @@ def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
     progs = list(frontier_progs) + solving + synthetic
 
     def rand_X(prog, K):
-        X = rng.integers(0, 1 << 16, (len(prog.var_slots), K, prog.limbs))
-        X[:, ::4, 2:] = 0
-        X[:, 1::5, :] = 0
-        for v, (_n, w) in enumerate(prog.var_slots):
-            X[v] &= np.array(pe.width_mask(w, prog.limbs))[None, :]
-        return X
+        return rand_candidates(rng, prog, K)
 
     def eval_plan_of(prog, K, variant=None):
         """The plan, with the kernel's own count of its shared bytes."""
@@ -1741,6 +1785,287 @@ def phase_flip(card, big):
                 solving=solving, big_launches=big_launches)
 
 
+# phase_explore: the explorer's small-corpus prepass geometry
+# (analysis/corpus.py:251-281 of the JAX package: 32 lanes a contract
+# under 64 contracts, roomy caps, 512 steps a wave, the -t 2 threat
+# model) with a fixed wave cap in place of its wall budget; the corpus
+# scale geometry (64 tracks, 16 lanes, lean caps); the milestone corpus
+# (__graft_entry__.py:203-204)
+EXPLORE_LANES = 32
+EXPLORE_WAVES = 8
+CORPUS_TRACKS = 64
+CORPUS_LANES = 16
+CORPUS_WAVES = 4
+MILESTONE = (("gated_kill", "604260003560f81c14600d57005b33ff"),
+             ("always_assert", "fe00000000"))
+MILESTONE_KILL_PC = 15
+EXPLORE_KERNELS = PATH_KERNELS + FLIP_KERNELS
+
+
+def explore_kwargs(codes, lanes, waves, mem_cap, storage_cap, **kw):
+    from mythril_tpu_torch.laser.batch.explore import required_calldata_len
+
+    return dict(calldata_len=max(required_calldata_len(c) for c in codes),
+                lanes_per_contract=lanes, waves=waves, steps_per_wave=512,
+                mem_cap=mem_cap, storage_cap=storage_cap, transaction_count=2,
+                portfolio_candidates=64, budget_s=None, **kw)
+
+
+def explore_fingerprint(contract):
+    """One contract's issue-bearing outcome: coverage, trigger pcs per
+    kind, evidence (class, pc) (the JAX pipeline suite's fingerprint)."""
+    return (tuple(map(tuple, contract["covered_branches"])),
+            tuple((kind, tuple(sorted(t["pc"] for t in bucket)))
+                  for kind, bucket in sorted(contract["triggers"].items())),
+            tuple(sorted((e["class"], e["pc"]) for e in contract["evidence"])))
+
+
+def run_explore(label, codes, names, card, **kw):
+    """One DeviceCorpusExplorer run on the card, logged per wave, per
+    reseed and per contract; fails on an invalid witness or a
+    degradation record. Returns the outcome, the explorer, the kernels'
+    launches during the run, its wall and its first wave's snapshot."""
+    from mythril_tpu_torch.laser.batch.explore import DeviceCorpusExplorer, snapshot_waves
+    from mythril_tpu_torch.support import resilience
+
+    resilience.DegradationLog().reset()
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    ex = DeviceCorpusExplorer(codes, **kw)
+    snaps = snapshot_waves(ex)
+    out = ex.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = out["stats"]
+    for w in ex.wave_log:
+        log(f"[explore {label}] phase {w['txn']} wave {w['serial']}: wall {w['wall_ms']:.1f} "
+            f"ms, {w['steps']} steps, {w['active']} active lane-steps of {w['lanes']} lanes, "
+            f"readback {w['readback_ms']:.1f} ms (seed {w['seed_ms']:.1f} ms "
+            f"{'in place' if w['warm'] else 'cold'}, run {w['run_ms']:.1f} ms, harvest wait "
+            f"{w['wait_ms']:.1f} ms) on {card}")
+    for r in ex.reseed_log:
+        log(f"[explore {label}] reseed for wave {r['wave']}: {r['candidates']} flip candidates "
+            f"+ {r['steering']} steering queries, {r['opaque']} opaque targets, {r['lowered']} "
+            f"queries lowered, device solve {r['solve_ms']:.1f} ms, verdicts {r['verdicts']}, "
+            f"{r['witnesses']} witnesses ({r['witness_invalid']} invalid), {r['deferred']} "
+            f"survivors deferred by the absent host ladder")
+    poison = sum(len(t.poison_carries) for t in ex.tracks)
+    log(f"[explore {label}] {len(codes)} contracts x {kw['lanes_per_contract']} lanes: "
+        f"{wall:.3f} s, {st['waves']} waves over {st['transactions']} phases, {st['device_steps']} "
+        f"active lane-steps ({st['device_steps_raw']} raw), carries banked "
+        f"{st['carries_banked']}, poison carries {poison} (last phase), forks tried "
+        f"{st['forks_tried']} / feasible {st['forks_feasible']}, device sat {st['device_sat']} "
+        f"/ unsat {st['device_unsat']} (enumerated {st['device_enumerated']}, cube "
+        f"{st['device_cube_sat']}), deferred {ex.ladder_deferred}, waves in flight max "
+        f"{st['waves_inflight_max']}, overlapped {st['waves_overlapped']}, "
+        f"wave_overlap_ratio {st['wave_overlap_ratio']}, device_idle_frac "
+        f"{st['device_idle_frac']}, evidence {st['evidence_bytes']} B of "
+        f"{st['evidence_bytes_full']} B, launches {launches} on {card}")
+    for name, contract in zip(names, out["contracts"]):
+        cov, trig, evid = explore_fingerprint(contract)
+        log(f"[explore {label}] {name}: {len(cov)} directions covered {list(cov)}, triggers "
+            f"{dict(trig)}, evidence {list(evid)}, device_complete "
+            f"{contract['device_complete']}, corpus {contract['corpus_size']}")
+    invalid = sum(r["witness_invalid"] for r in ex.reseed_log)
+    if invalid:
+        raise SystemExit(f"explore {label}: {invalid} witnesses failed validation")
+    degraded = resilience.DegradationLog().marker()
+    if degraded:
+        raise SystemExit(f"explore {label}: the degradation log holds {degraded}: "
+                         f"{resilience.DegradationLog().events}")
+    return dict(out=out, explorer=ex, launches=launches, wall=wall,
+                first=snaps[0] if snaps else None)
+
+
+def first_wave_on_cpu(codes, kw):
+    """The same explorer's first wave on the CPU (the plain kernels):
+    its wave_snapshot, taken before any witness enters. A stop event
+    set at the first consume ends the run there."""
+    import threading
+
+    from mythril_tpu_torch.laser.batch.explore import DeviceCorpusExplorer, wave_snapshot
+
+    stop = threading.Event()
+    ex = DeviceCorpusExplorer(codes, stop_event=stop, **dict(kw, device="cpu"))
+    first = []
+    consume = ex._consume_wave
+
+    def _consume(view, payload):
+        consume(view, payload)
+        if not first:
+            first.append(wave_snapshot(ex, payload))
+            stop.set()
+
+    ex._consume_wave = _consume
+    ex.run()
+    return first[0]
+
+
+def first_batch(run):
+    """Run `run()` and return its result and the query list of the
+    first device_solve_batch call it made (the explorer's first reseed
+    that lowered queries), passed on unchanged."""
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+
+    real = pf.device_solve_batch
+    seen = []
+
+    def recording(queries, **kw):
+        if not seen:
+            seen.append(list(queries))
+        return real(queries, **kw)
+
+    pf.device_solve_batch = recording
+    try:
+        return run(), seen[0] if seen else []
+    finally:
+        pf.device_solve_batch = real
+
+
+def hold_batch_to_plain(label, queries, card):
+    """A real reseed's queries, compiled as device_solve_batch compiles
+    them, the first BATCH_CHECK_Q of them (the launch plan follows the
+    programs' padded sizes, not Q; the plain search's CPU time grows with
+    Q): portfolio_sls over all of
+    them in one launch, at the plan's choice, bit-equal to sls_plain
+    (SLS_CHECK_STEPS steps, the explorer's 64 candidates), and
+    portfolio_eval on each at K = 64 random candidates equal to
+    eval_plain. Both plain versions run on CPU copies."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+    from mythril_tpu_torch.ops import portfolio_eval as pe
+    from mythril_tpu_torch.ops import portfolio_sls as ps
+
+    progs = []
+    for q in queries:
+        prog, _dropped, _loss = pf.compile_program_relaxed(q)
+        if prog is not None and prog.var_slots:
+            progs.append(prog)
+    progs = progs[:BATCH_CHECK_Q]
+    if not progs:
+        raise SystemExit(f"explore {label}: the first batch compiled no program to check")
+    knobs = dict(pf.PORTFOLIO_DEFAULTS)
+    t0 = time.perf_counter()
+    want = ps.sls_plain(*pf.stack_programs(progs, "cpu"), seed=7, steps=SLS_CHECK_STEPS,
+                        K=64, **ps.search_args(64, knobs))
+    sls_plain_s = time.perf_counter() - t0
+    got = ps.portfolio_sls(*pf.stack_programs(progs, "cuda"), seed=7, steps=SLS_CHECK_STEPS,
+                           K=64, knobs=knobs)
+    sync()
+    sls_bad = sum(int((g.cpu() != w).sum()) for g, w in zip(got, want))
+    plan = plan_text(sls_stack_plan(progs, 64))
+    rng = np.random.default_rng(6)
+    eval_bad = 0
+    for prog in progs:
+        X = rand_candidates(rng, prog, 64)
+        want = pe.eval_plain(*pe.program_tensors(prog, "cpu"), torch.as_tensor(X),
+                             n_nodes=prog.n_real_nodes)
+        got_e = pe.portfolio_eval(*pe.program_tensors(prog, "cuda"),
+                                  torch.as_tensor(X, device="cuda"), n_nodes=prog.n_real_nodes)
+        eval_bad += int((got_e[0].cpu() != want[0]).sum() + (got_e[1].cpu() != want[1]).sum())
+    sync()
+    log(f"[explore {label}] the first batch's {len(queries)} queries, {len(progs)} programs "
+        f"checked (L {sorted({p.limbs for p in progs})}, up to "
+        f"{max(p.n_real_nodes for p in progs)} nodes): portfolio_sls Q={len(progs)} K=64 "
+        f"{SLS_CHECK_STEPS} steps ({plan}) {sls_bad} mismatches against sls_plain, "
+        f"{int(got[0].sum())} solved; portfolio_eval K=64 on each: {eval_bad} mismatches "
+        f"against eval_plain (CPU: sls_plain {sls_plain_s:.1f} s, in all "
+        f"{time.perf_counter() - t0:.1f} s) on {card}")
+    if sls_bad or eval_bad:
+        raise SystemExit(f"explore {label}: the portfolio kernels disagree with their plain "
+                         f"versions on the first batch: sls {sls_bad}, eval {eval_bad}")
+
+
+def hold_first_wave(label, codes, kw, card_first):
+    """The leg's first wave on the card against the same explorer's
+    first wave on the CPU."""
+    t0 = time.perf_counter()
+    cpu_first = first_wave_on_cpu(codes, kw)
+    if cpu_first != card_first:
+        differ = [k for k in cpu_first if cpu_first[k] != card_first[k]]
+        raise SystemExit(f"explore {label}: the first wave differs from the CPU's in {differ}")
+    log(f"[explore {label}] first wave equal to a device='cpu' run of the same explorer "
+        f"(seeded calldata, coverage, triggers, evidence, carries, every count; CPU "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def phase_explore(card):
+    """The device explorer (laser/batch/explore.py) on the card: leg A at
+    the small-corpus prepass geometry, pipelined then lock-step (the
+    default) with the same seed; leg B at corpus scale, its first wave
+    held to a CPU run and its first batch of queries to the portfolio's
+    plain versions; leg C on the milestone corpus, its first wave held
+    to a CPU run. Legs B and C take the default schedule."""
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+
+    codes = [c.hex() for c in wave.load_contracts()]
+    names = [p.name for p in sorted(wave.CONTRACTS.glob("*.sol.o"))]
+    kw = explore_kwargs(codes, EXPLORE_LANES, EXPLORE_WAVES, 16384, 128)
+    log(f"[explore] leg A: {len(codes)} vendored contracts x {EXPLORE_LANES} lanes, "
+        f"calldata {kw['calldata_len']} B, mem_cap 16384, storage_cap 128, 512 steps a wave, "
+        f"{EXPLORE_WAVES} waves a phase, 2 transactions, 64 candidates, cube depth 3")
+    piped = run_explore("A pipelined", codes, names, card, pipeline=True, **kw)
+    lock = run_explore("A lock-step", codes, names, card, pipeline=False, **kw)
+    for name in EXPLORE_KERNELS:
+        if not (piped["launches"][name] and lock["launches"][name]):
+            raise SystemExit(f"explore leg A never launched {name} in one schedule")
+    same = differ = 0
+    for name, p, q in zip(names, piped["out"]["contracts"], lock["out"]["contracts"]):
+        fp, fq = explore_fingerprint(p), explore_fingerprint(q)
+        if fp == fq:
+            same += 1
+            continue
+        differ += 1
+        only_p = sorted(set(fp[0]) - set(fq[0]))
+        only_q = sorted(set(fq[0]) - set(fp[0]))
+        log(f"[explore A] {name}: the schedules differ: covered only pipelined {only_p}, only "
+            f"lock-step {only_q}; triggers {dict(fp[1])} / {dict(fq[1])}; evidence "
+            f"{list(fp[2])} / {list(fq[2])}")
+        if fp[1:] != fq[1:]:
+            raise SystemExit(f"explore leg A: {name}'s triggers or evidence differ between "
+                             f"the schedules")
+    log(f"[explore A] fingerprints: {same} contracts equal under both schedules, {differ} "
+        f"differ in coverage only")
+
+    tracks = [codes[i % len(codes)] for i in range(CORPUS_TRACKS)]
+    track_names = [names[i % len(names)] for i in range(CORPUS_TRACKS)]
+    kw_b = explore_kwargs(tracks, CORPUS_LANES, CORPUS_WAVES, 4096, 64)
+    log(f"[explore] leg B: {CORPUS_TRACKS} tracks cycling the {len(codes)} contracts x "
+        f"{CORPUS_LANES} lanes ({CORPUS_TRACKS * CORPUS_LANES} lanes), mem_cap 4096, "
+        f"storage_cap 64, {CORPUS_WAVES} waves a phase, 2 transactions")
+    corpus, batch = first_batch(lambda: run_explore("B", tracks, track_names, card, **kw_b))
+    sizes = [r["lowered"] for r in corpus["explorer"].reseed_log]
+    log(f"[explore B] queries a device_solve_batch: {sizes} (largest {max(sizes, default=0)})")
+    hold_first_wave("B", tracks, kw_b, corpus["first"])
+    hold_batch_to_plain("B", batch, card)
+
+    m_codes = [code for _, code in MILESTONE]
+    kw_c = explore_kwargs(m_codes, EXPLORE_LANES, EXPLORE_WAVES, 16384, 128)
+    log(f"[explore] leg C: the milestone corpus {[n for n, _ in MILESTONE]} x "
+        f"{EXPLORE_LANES} lanes, mem_cap 16384, storage_cap 128, {EXPLORE_WAVES} waves a "
+        f"phase, 2 transactions")
+    mile = run_explore("C", m_codes, [n for n, _ in MILESTONE], card, **kw_c)
+    gated, asserts = mile["out"]["contracts"]
+    kills = [t for t in gated["triggers"].get("selfdestruct", [])
+             if t["pc"] == MILESTONE_KILL_PC and bytes.fromhex(t["input"])[:1] == b"\x42"]
+    if not kills:
+        raise SystemExit(f"explore leg C: no selfdestruct at pc {MILESTONE_KILL_PC} with input "
+                         f"byte 0 = 0x42 in gated_kill: {gated['triggers']}")
+    if not any(t["pc"] == 0 for t in asserts["triggers"].get("assert-violation", [])):
+        raise SystemExit(f"explore leg C: no assert-violation at pc 0 in always_assert: "
+                         f"{asserts['triggers']}")
+    log(f"[explore C] gated_kill: selfdestruct at pc {MILESTONE_KILL_PC}, input "
+        f"{kills[0]['input'][:8]}..., prefix {kills[0]['prefix']}; always_assert: "
+        f"assert-violation at pc 0")
+    hold_first_wave("C", m_codes, kw_c, mile["first"])
+    return dict(launches=lock["launches"], piped_launches=piped["launches"],
+                corpus_launches=corpus["launches"], milestone_launches=mile["launches"])
+
+
 def phase_bignum(card):
     """The bit-serial u256 loops at full width (candidates for kernels)."""
     import numpy as np
@@ -1940,7 +2265,7 @@ def pinned_frontier_programs():
     view, tracks, by_contract = ArenaView(out), {}, ff.lanes_by_contract(code_ids)
     ff.harvest(view, tracks, by_contract)
     cands, _, _ = ff.collect_candidates(view, tracks, by_contract)
-    lowered, _ = ff.lower_flips([conds for _, _, conds, _ in cands], lower)
+    lowered, _ = ff.lower_flips([conds for _, _, conds, _ in cands], lower_fn=lower)
     progs = [pf.compile_program_relaxed(lw)[0] for lw in lowered]
     return [p for p in progs if p is not None and p.var_slots]
 
@@ -2054,6 +2379,9 @@ def main() -> int:
     if args == ["--kernels"]:
         phase_portfolio_kernels(card, [])
         return 0
+    if args == ["--explore"]:
+        phase_explore(card)
+        return 0
     main_path = phase_main_path(card)
     sync()
     phase_profile(card, main_path["wall"] / main_path["steps"] * 1e3)
@@ -2065,6 +2393,8 @@ def main() -> int:
     phase_sym_parity()
     sync()
     flip = phase_flip(card, sym_wave["frontier"])
+    sync()
+    explore = phase_explore(card)
     sync()
     kern.update(phase_portfolio_kernels(card, flip["programs"], flip["solving"]))
     sync()
@@ -2092,8 +2422,11 @@ def main() -> int:
         "launches": main_path["launches"][name],
         "launches_symbolic_wave": sym_wave["launches"][name],
         "launches_flip": flip["launches"][name],
+        "launches_explore": explore["launches"][name],
+        "launches_explore_pipelined": explore["piped_launches"][name],
         **({"launches_many": main_path["launches"]["slot_write_many"],
             "launches_many_symbolic_wave": sym_wave["launches"]["slot_write_many"],
+            "launches_many_explore": explore["launches"]["slot_write_many"],
             "host_us_per_call_many": host_us["slot_write_many, 8 banks"]}
            if name == "slot_write" else {}),
         "mismatches": k.pop("mismatches"),

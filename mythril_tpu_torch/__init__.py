@@ -13,6 +13,9 @@ caller passes `device="cpu"`:
   `run_generations` (a wave's flip frontier decoded, lowered and solved
   by `laser.smt.solver.portfolio.device_solve_batch`, its witnesses
   seeding the next wave);
+- `laser.batch.explore.DeviceCorpusExplorer` / `DeviceSymbolicExplorer`
+  (the device explorer: waves, flips, carries across attacker
+  transactions, per-contract outcomes) and `replay_wave`;
 - `ops.keccak.keccak256`.
 
 The hand-written kernels, built with nvcc at first use, are keccak-f[1600]

@@ -5,27 +5,32 @@ explorer (laser/batch/explore.py there) does between two waves:
 
 1. `harvest`: every lane's branch journal marks its (pc, taken)
    directions covered, per contract (the explorer's coverage harvest);
-2. `collect_candidates`: per lane, the first symbolic decision whose
+2. `collect_candidates`: per lane, the explorer's candidate rule
+   (`explore.lane_flip_candidate`): the first symbolic decision whose
    other direction no lane of the contract has covered or attempted
-   becomes a flip candidate: its path condition with the last decision
+   becomes a flip candidate, its path condition with the last decision
    inverted, decoded from the arena (`ArenaView.path_condition`); a
-   prefix with an opaque decision is recorded as opaque instead (the
-   explorer's `_collect_flip_candidates`, with per-contract `covered` /
-   `attempted` sets and no static pruning);
-3. `lower_flips`: each path condition through `preprocess.lower`;
+   prefix with an opaque decision is recorded as opaque instead;
+3. `lower_flips` (the explorer's): each path condition through
+   `preprocess.lower`;
 4. `solve_frontier`: the lowered queries in one `device_solve_batch`
    dispatch at the explorer's settings (64 candidates, 192 first-pass
    steps, cube depth 3): enumeration, the SLS and the cube fan on the
    card, every SAT validated;
 5. `next_wave`: a lane whose query was solved runs its witness as
-   calldata (`witness_bytes`), every other lane a fresh draw of
-   `seeds.selector_seeds` with the next generation's seed, through
+   calldata (the explorer's `witness_bytes`), every other lane a fresh
+   draw of `seeds.selector_seeds` with the next generation's seed, through
    `reseed_wave_inplace` and `sym_run`.
 
-The explorer's mutation top-up, carries, steering and ownership gates
-are not here. `canonical_digest` gives a term list a digest that does
-not depend on the term interner's creation ids, so the port's decode can
-be held to the JAX package's (flip_frontier_pinned.json, regenerated by
+This is the flip phase of `chip_smoke.py` and the frontier parity
+tools: a wave's frontier solved on its own, generation after
+generation. The whole exploration loop (mutation top-up, carries,
+poison seeding, steering, completeness gates, the pipelined schedule)
+is `laser/batch/explore.py`'s `DeviceCorpusExplorer`.
+
+`canonical_digest` gives a term list a digest that does not depend on
+the term interner's creation ids, so the port's decode can be held to
+the JAX package's (flip_frontier_pinned.json, regenerated by
 `PYTHONPATH=. python tests/test_torch_arena.py --pin`).
 """
 
@@ -43,6 +48,11 @@ import numpy as np
 
 from mythril_tpu_torch.laser import symbolic_wave as wave
 from mythril_tpu_torch.laser.batch import seeds
+from mythril_tpu_torch.laser.batch.explore import (
+    lane_flip_candidate,
+    lower_flips,
+    witness_bytes,
+)
 from mythril_tpu_torch.laser.batch import symbolic as sym
 from mythril_tpu_torch.laser.smt.solver import portfolio
 from mythril_tpu_torch.laser.smt.solver.preprocess import lower
@@ -97,57 +107,20 @@ def harvest(view, tracks: Dict[int, Track], by_contract) -> Dict[str, int]:
 def collect_candidates(view, tracks: Dict[int, Track], by_contract):
     """(candidates, tried, opaque): candidates are (lane, journal index,
     path condition, target) in contract-major lane order, at most one
-    per lane; `tried` counts the targets attempted, `opaque` those whose
-    prefix held an opaque decision."""
+    per lane, by the explorer's rule (`explore.lane_flip_candidate`);
+    `tried` counts the targets attempted, `opaque` those whose prefix
+    held an opaque decision."""
     out = []
     tried = opaque = 0
     for c, lanes in by_contract.items():
         track = tracks.setdefault(c, Track())
         for lane in lanes:
-            for k, (pc, taken, tid) in enumerate(view.journal(lane)):
-                target = (pc, not taken)
-                if tid <= 0:
-                    continue  # concrete or opaque condition: nothing to flip
-                if target in track.covered or target in track.attempted:
-                    continue
-                track.attempted.add(target)
-                tried += 1
-                conditions = view.path_condition(lane, k, flip_last=True)
-                if conditions is None:
-                    opaque += 1  # an opaque decision upstream: unflippable
-                    continue
-                out.append((lane, k, conditions, target))
-                break
+            found, counts = lane_flip_candidate(view, lane, track.covered, track.attempted)
+            tried += counts["tried"]
+            opaque += len(counts["opaque"])
+            if found is not None:
+                out.append((lane,) + found)
     return out, tried, opaque
-
-
-def lower_flips(batch, lower_fn=lower) -> Tuple[list, List[int]]:
-    """(lowered queries, their indices into `batch`); a query that fails
-    to lower is left out."""
-    lowered_batch, kept = [], []
-    for i, conds in enumerate(batch):
-        try:
-            lowered, _ = lower_fn([c.raw for c in conds])
-        except Exception:
-            continue
-        lowered_batch.append(lowered)
-        kept.append(i)
-    return lowered_batch, kept
-
-
-def witness_bytes(assignment: Dict[str, int], calldata_len: int = wave.CALLDATA_LEN) -> bytes:
-    """The calldata a witness names: byte i from variable `cd<i>`, every
-    other byte zero."""
-    data = bytearray(calldata_len)
-    for name, value in assignment.items():
-        if name.startswith("cd"):
-            try:
-                i = int(name[2:])
-            except ValueError:
-                continue
-            if i < calldata_len:
-                data[i] = value & 0xFF
-    return bytes(data)
 
 
 def solve_frontier(view, tracks: Dict[int, Track], by_contract, device=None,
@@ -311,7 +284,7 @@ def pinned_wave_frontier(view, code_ids, lower_fn=lower) -> dict:
     by_contract = lanes_by_contract(code_ids)
     harvest(view, tracks, by_contract)
     cands, tried, opaque = collect_candidates(view, tracks, by_contract)
-    lowered, kept = lower_flips([conds for _, _, conds, _ in cands], lower_fn)
+    lowered, kept = lower_flips([conds for _, _, conds, _ in cands], lower_fn=lower_fn)
     where = dict(zip(kept, lowered))
     return {"tried": tried, "opaque": opaque,
             "candidates": candidate_digests(cands, where.get)}

@@ -1,7 +1,30 @@
-"""The solver's loss-reason taxonomy: a copy of the constants of the JAX
-package's observe/querylog.py (the flight recorder itself is not
-ported). A `DeviceVerdict`'s `loss` and `compile_program_ex`'s reason
-are one of these strings."""
+"""The solver's loss-reason taxonomy, query context and query capture.
+
+The port's copy of the parts of the JAX package's observe/querylog.py
+that its solver and explorer use: the loss constants (a
+`DeviceVerdict`'s `loss` and `compile_program_ex`'s reason are one of
+them), the thread-local query context (`query_context`, the origin
+labels), and capture (`configure_capture(dir)` arms it; each captured
+query's lowered constraint set serializes to `<dir>/q-<sha256>.json`
+in the JAX package's artifact schema, so its solverlab replays the
+port's captures). The registry counters of the loss waterfall are not
+ported.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import threading
+from contextlib import contextmanager
+from typing import Dict, List, Optional
+
+log = logging.getLogger(__name__)
+
+#: artifact schema (the JAX package's; solverlab refuses a newer one)
+ARTIFACT_SCHEMA_VERSION = 1
 
 LOSS_LOWERING_UNSUPPORTED = "LOWERING_UNSUPPORTED"
 LOSS_BUCKET_OVERFLOW = "BUCKET_OVERFLOW"
@@ -14,3 +37,225 @@ LOSS_WITNESS_INVALID = "WITNESS_INVALID"
 LOSS_QUERY_TRIVIAL = "QUERY_TRIVIAL"
 LOSS_DEADLINE_EXPIRED = "DEADLINE_EXPIRED"
 LOSS_UNCLASSIFIED = "UNCLASSIFIED"
+
+#: the query-origin labels (where a query came FROM, as opposed to the
+#: solverstats origin of who ANSWERED it)
+QUERY_ORIGIN_FLIP = "flip-frontier"
+QUERY_ORIGIN_MEMO_MISS = "memo-miss"
+
+
+# ---------------------------------------------------------------------------
+# query context: where did this query come from
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+
+def current_origin() -> str:
+    """The innermost query-context tag; bare solves (engine
+    feasibility checks) default to memo-miss — they reached the solver
+    because the get_model memo missed."""
+    stack = getattr(_CTX, "stack", None)
+    return stack[-1] if stack else QUERY_ORIGIN_MEMO_MISS
+
+
+@contextmanager
+def query_context(origin: str):
+    """Tag queries issued inside the block with `origin`."""
+    stack = getattr(_CTX, "stack", None)
+    if stack is None:
+        stack = _CTX.stack = []
+    stack.append(origin)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+# ---------------------------------------------------------------------------
+# capture configuration
+# ---------------------------------------------------------------------------
+
+_CAPTURE_DIR: Optional[str] = None
+_CAPTURE_MU = threading.Lock()
+#: per-artifact observation cap: a hot memo-missing query re-posed
+#: hundreds of times must not grow its artifact unboundedly
+MAX_OBSERVATIONS = 16
+
+
+def configure_capture(out_dir: Optional[str]) -> None:
+    """Arm (or, with None, disarm) query capture into `out_dir`."""
+    global _CAPTURE_DIR
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    _CAPTURE_DIR = out_dir or None
+
+
+def capture_dir() -> Optional[str]:
+    return _CAPTURE_DIR
+
+
+def capture_enabled() -> bool:
+    return _CAPTURE_DIR is not None
+
+
+# ---------------------------------------------------------------------------
+# term (de)serialization: the replayable program
+# ---------------------------------------------------------------------------
+
+
+def serialize_terms(lowered) -> Dict:
+    """Flatten a lowered constraint set into a JSON-able DAG: one node
+    per interned term in topological order, term args as ["t", idx],
+    ints as ["i", n], names as ["s", name]. Raises NotImplementedError
+    on payloads outside (Term | int | str) — post-`lower` sets never
+    hold any."""
+    from mythril_tpu_torch.laser.smt.terms import Term
+
+    order: List = []
+    index: Dict[int, int] = {}
+    for root in lowered:
+        stack = [(root, False)]
+        while stack:
+            node, expanded = stack.pop()
+            if node._id in index:
+                continue
+            if expanded:
+                if node._id not in index:
+                    index[node._id] = len(order)
+                    order.append(node)
+                continue
+            stack.append((node, True))
+            for a in node.args:
+                if isinstance(a, Term) and a._id not in index:
+                    stack.append((a, False))
+
+    nodes = []
+    for t in order:
+        args = []
+        for a in t.args:
+            if isinstance(a, Term):
+                args.append(["t", index[a._id]])
+            elif isinstance(a, bool):
+                args.append(["i", int(a)])
+            elif isinstance(a, int):
+                args.append(["i", a])
+            elif isinstance(a, str):
+                args.append(["s", a])
+            else:
+                raise NotImplementedError(
+                    f"unserializable payload {type(a).__name__} in {t.op}"
+                )
+        nodes.append({"op": t.op, "w": t.width or 0, "a": args})
+    return {
+        "nodes": nodes,
+        "roots": [index[c._id] for c in lowered],
+    }
+
+
+def content_address(doc: Dict) -> str:
+    """sha256 of the program with var NAMES canonicalized to their
+    first-occurrence index: the preprocessor's gensym'd fresh names
+    (select/UF elimination) differ run to run, but the query they
+    encode is the same query — and must dedup to the same artifact."""
+    rename: Dict[str, str] = {}
+    canon_nodes = []
+    for node in doc["nodes"]:
+        args = []
+        for kind, value in node["a"]:
+            if kind == "s":
+                if value not in rename:
+                    rename[value] = f"v{len(rename)}"
+                value = rename[value]
+            args.append([kind, value])
+        canon_nodes.append([node["op"], node["w"], args])
+    blob = json.dumps(
+        [canon_nodes, doc["roots"]], separators=(",", ":"), sort_keys=True
+    )
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# capture
+# ---------------------------------------------------------------------------
+
+
+def _bucket_info(lowered):
+    """(shape-bucket key, compile-loss reason) of the query as the
+    portfolio sees it — the bucket the replay lab groups engines by."""
+    from mythril_tpu_torch.laser.smt.solver import portfolio
+
+    prog, reason = portfolio.compile_program_ex(lowered)
+    if prog is None:
+        return None, reason
+    return portfolio.bucket_key(prog), None
+
+
+def capture_query(
+    lowered,
+    engine: str,
+    verdict: str,
+    wall_s: float = 0.0,
+    hop: int = 0,
+    loss_reason: Optional[str] = None,
+    site: str = "",
+    origin: Optional[str] = None,
+    detail: Optional[Dict] = None,
+) -> Optional[str]:
+    """Serialize one solved query into the capture corpus (no-op when
+    capture is off). `detail` is a small JSON-able dict attached to
+    the observation (e.g. the actual sprint cap behind a
+    SPRINT_PREEMPTED loss). Returns the artifact path, or None. Never
+    raises: capture must never sink a query."""
+    out_dir = _CAPTURE_DIR
+    if out_dir is None or not lowered:
+        # a fully-propagated (empty) query is a trivial sat — there is
+        # nothing to replay
+        return None
+    try:
+        doc = serialize_terms(lowered)
+        sha = content_address(doc)
+        observation = {
+            "engine": engine,
+            "verdict": verdict,
+            "wall_s": round(float(wall_s), 6),
+            "hop": int(hop),
+            "loss_reason": loss_reason,
+            "site": site,
+        }
+        if detail:
+            observation["detail"] = dict(detail)
+        path = os.path.join(out_dir, f"q-{sha}.json")
+        with _CAPTURE_MU:
+            if os.path.exists(path):
+                with open(path) as fp:
+                    artifact = json.load(fp)
+            else:
+                bucket, compile_loss = _bucket_info(lowered)
+                artifact = {
+                    "schema_version": ARTIFACT_SCHEMA_VERSION,
+                    "kind": "mtpu-solver-query",
+                    "sha": sha,
+                    "origin": origin or current_origin(),
+                    "n_constraints": len(doc["roots"]),
+                    "n_nodes": len(doc["nodes"]),
+                    "bucket": bucket,
+                    "compile_loss": compile_loss,
+                    "program": doc,
+                    "observations": [],
+                }
+            obs = artifact["observations"]
+            if len(obs) < MAX_OBSERVATIONS:
+                obs.append(observation)
+            else:
+                obs[-1] = observation
+            artifact["verdict"] = verdict
+            artifact["loss_reason"] = loss_reason
+            tmp = path + ".tmp"
+            with open(tmp, "w") as fp:
+                json.dump(artifact, fp, sort_keys=True)
+            os.replace(tmp, path)
+        return path
+    except Exception:
+        log.debug("query capture failed", exc_info=True)
+        return None

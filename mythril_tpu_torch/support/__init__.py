@@ -1,1 +1,2 @@
-"""Opcode table, host keccak oracle, backend probe."""
+"""Opcode table, host keccak oracle, backend probe, the flag bag
+(`support_args`), and the resilience layer (`resilience`, `breaker`)."""

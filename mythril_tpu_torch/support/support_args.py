@@ -1,0 +1,35 @@
+"""Global runtime flag bag.
+
+The port's copy of the JAX package's support/support_args.py (reference
+parity: mythril/support/support_args.py:1-16): a singleton `args` read
+by deep layers without explicit plumbing. It holds the flags the port's
+layers read so far; each keeps the JAX package's name and meaning.
+
+`static_prune` defaults to False here: the static pre-analysis
+(analysis/static) is not ported, and the explorer raises if it is
+asked for. `specialize` is False for the same reason (no specialized
+kernels).
+"""
+
+from __future__ import annotations
+
+from mythril_tpu_torch.support.support_utils import Singleton
+
+
+class Args(object, metaclass=Singleton):
+    def __init__(self):
+        # Static pre-analysis (analysis/static, CLI --no-static-prune):
+        # not ported; True makes the explorer raise NotImplementedError.
+        self.static_prune = False
+        # Kernel specialization (laser/batch/specialize.py): not ported;
+        # True makes the explorer raise NotImplementedError.
+        self.specialize = False
+        # Pipelined wave engine: up to two waves in flight, the host's
+        # evidence consume and flip solving overlapping the card's
+        # execution of the next wave. Off = the lock-step schedule.
+        # Off by default in the port (on in the JAX package): a wave's
+        # step loop holds the GIL, so it measured no faster on the card.
+        self.pipeline = False
+
+
+args = Args()

@@ -3,9 +3,10 @@
 A subprocess imports `mythril_tpu_torch`, runs a 4-lane CPU `run`, a
 4-lane symbolic wave (`sym_run`, `ArenaView`, `reseed_wave`), the
 wave's flip frontier (`flip_frontier`: harvest, candidates, the term
-decode, `lower`) and a `device_solve_batch` of one query (the SMT term
-layer, `compile_program`, enumeration through `portfolio_eval`), and
-checks that `jax` never entered `sys.modules` and that no module of the
+decode, `lower`), a `device_solve_batch` of one query (the SMT term
+layer, `compile_program`, enumeration through `portfolio_eval`) and a
+two-contract `DeviceCorpusExplorer` run (laser/batch/explore.py, with
+its resilience, checkpoint, span and capture modules), and checks that `jax` never entered `sys.modules` and that no module of the
 JAX package did either. A source scan finds no import of either in the
 port's files or in chip_smoke.py. Without a CUDA device, an entry point
 called with no device raises instead of carrying on on the CPU.
@@ -56,6 +57,12 @@ x = T.bv_var("iso_x", 4)
 (v,) = portfolio.device_solve_batch([[T.eq(T.add(x, T.bv_const(3, 4)), T.bv_const(1, 4))]],
                                     device="cpu")
 assert (v.status, v.via, v.assignment) == ("sat", "enum", {"iso_x": 14}), v
+from mythril_tpu_torch.laser.batch import explore
+res = explore.DeviceCorpusExplorer(["60003560f81c604214600d57005b600160005500", "33ff"],
+                                   lanes_per_contract=4, waves=2, steps_per_wave=64,
+                                   device="cpu").run()
+assert res["stats"]["waves"] >= 2, res["stats"]
+assert "selfdestruct" in res["contracts"][1]["triggers"], res["contracts"][1]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "mythril_tpu" or m.startswith("mythril_tpu."))
@@ -106,6 +113,7 @@ def test_entry_points_without_device_raise_where_no_cuda():
     from mythril_tpu_torch.laser.batch import make_batch, make_code_table
     from mythril_tpu_torch.laser.conformance import run_cases
     from mythril_tpu_torch.laser import flip_frontier
+    from mythril_tpu_torch.laser.batch import explore
     from mythril_tpu_torch.laser.smt import terms as T
     from mythril_tpu_torch.laser.smt.solver import portfolio
     from mythril_tpu_torch.ops.keccak import keccak256
@@ -123,7 +131,9 @@ def test_entry_points_without_device_raise_where_no_cuda():
                  lambda: portfolio.device_check(query),
                  lambda: portfolio.debug_eval(prog, {}),
                  lambda: portfolio.rank_impact_vars(prog),
-                 lambda: flip_frontier.run_generations(1, 2, 1)):
+                 lambda: flip_frontier.run_generations(1, 2, 1),
+                 lambda: explore.DeviceCorpusExplorer(["33ff"]),
+                 lambda: explore.DeviceSymbolicExplorer("33ff")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
