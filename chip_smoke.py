@@ -8,6 +8,8 @@
                                             # solving and synthetic programs)
     python3 chip_smoke.py --explore         # device, build, then only the
                                             # device explorer (phase 8)
+    python3 chip_smoke.py --analyze         # device, build, then only the
+                                            # analysis (phase 9)
     python3 chip_smoke.py --ab-host-reads   # device, build, then only the
                                             # A/B of the u256 loops' host read
     python3 chip_smoke.py --ab-windows      # device, build, then only the
@@ -114,7 +116,23 @@ non-zero (nothing is caught):
    (gated_kill must report a selfdestruct at pc 15 with input byte 0 =
    0x42, always_assert an assert-violation at pc 0), its first wave held
    to the CPU's. A degradation record after any leg fails the run;
-9. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
+9. analyze (the main path's step 4, analysis/corpus.py): the milestone
+   corpus through `python -m mythril_tpu_torch analyze --bin-runtime -f
+   ... -f ... -t 2 -o json` in a subprocess on the card, which must exit 0
+   with both contracts owned, SWC-106 at pc 15 and SWC-110 at pc 0, and
+   each contract alone through `-c` (the same issues); then the 13
+   vendored contracts through analyze_corpus on the card at the
+   small-corpus prepass geometry under its wall budget, the waves a phase
+   capped at 8 (the JAX package's cap is 48): per contract owned or not
+   and its issue fingerprints, both of which must equal the JAX
+   package's, pinned in tests/test_torch_analyze_vendored_pinned.json
+   from a JAX run under its enumeration-only solver (the run fails if no
+   owned contract was compared), every witness replayed on the CPU to its pc
+   (analysis/replay.py), the report rendered in every form, the wall to
+   the report split into prepass, synthesis and rendering, and the
+   kernels' launches (all four of the explorer's must launch; the kernels
+   line's `launches_analyze`);
+10. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
    own programs (the search also on the cube fan's), on queries the
    search solves (before the first step and mid-search) and on
    synthetic ones at 32 to 2048 bits (every op, L = 16 to 128), each
@@ -131,12 +149,12 @@ non-zero (nothing is caught):
    at the flip's own shapes (the first pass and the cube fan, K = 64,
    192 steps; rank_impact_vars' batch) and at Q = 128 queries;
    registers and spills from ptxas;
-10. VMTests: every vendored suite through run_cases(hybrid=False) on the
+11. VMTests: every vendored suite through run_cases(hybrid=False) on the
    card, name by name against the JAX package's pinned verdicts
    (mythril_tpu_torch/laser/vmtests_device_verdicts.json), with no
    mismatch and no "fail:";
-11. report: the `kernels` JSON line (each kernel's launches on every
-   path: main, symbolic wave, flip frontier, explore), then the result
+12. report: the `kernels` JSON line (each kernel's launches on every
+   path: main, symbolic wave, flip frontier, explore, analyze), then the result
    line.
 
 After 4 it also prints where a main-path step's time goes
@@ -2066,6 +2084,156 @@ def phase_explore(card):
                 corpus_launches=corpus["launches"], milestone_launches=mile["launches"])
 
 
+# phase_analyze: `python -m mythril_tpu_torch analyze` and analyze_corpus
+# on the card. The 13 vendored contracts run at the small-corpus prepass
+# geometry under its wall budget, with the waves a phase capped at
+# VENDORED_WAVES (8, the JAX package's cap is 48), the geometry the JAX
+# pin VENDORED_PIN was taken at (per contract: name, owned, issue
+# fingerprints; made by `tests/test_torch_analyze.py --pin-vendored`)
+VENDORED_PIN = ROOT / "tests" / "test_torch_analyze_vendored_pinned.json"
+VENDORED_WAVES = 8
+ANALYZE_SWC = {"gated_kill": ("106", 15, "Unprotected Selfdestruct", "High"),
+               "always_assert": ("110", 0, "Exception State", "Medium")}
+
+
+def analyze_cli(*argv):
+    """One `python -m mythril_tpu_torch analyze` on the card, in a
+    subprocess: (exit code, stdout, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mythril_tpu_torch", "analyze", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode not in (0, 1):
+        raise SystemExit(f"analyze {' '.join(argv)} failed ({proc.returncode}):\n"
+                         f"{proc.stderr[-4000:]}")
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def phase_analyze(card):
+    """The main path end to end: the milestone corpus through the command
+    line in a subprocess on the card (SWC-106 and SWC-110, both owned),
+    then the 13 vendored contracts through analyze_corpus on the card at
+    full width: per contract owned or not and the issue fingerprints,
+    both held to the JAX pin, every witness
+    replayed on the CPU, the kernels' launches, and the wall split into
+    prepass, synthesis and rendering."""
+    import tempfile
+
+    from mythril_tpu_torch.analysis import corpus
+    from mythril_tpu_torch.analysis.replay import replays_to
+    from mythril_tpu_torch.ethereum.evmcontract import EVMContract
+    from mythril_tpu_torch.interfaces.cli import build_report
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.support import resilience
+
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for name, code in MILESTONE:
+            path = Path(tmp) / name
+            path.write_text(code + "\n")
+            files += ["-f", str(path)]
+        rc, out, secs = analyze_cli("--bin-runtime", *files, "-t", "2", "-o", "json")
+    doc = json.loads(out)
+    got = {(Path(i["contract"]).name, i["swc-id"], i["address"], i["title"], i["severity"])
+           for i in doc["issues"]}
+    want = {(name,) + ANALYZE_SWC[name] for name, _ in MILESTONE}
+    log(f"[analyze cli] the milestone corpus as two -f files: exit {rc}, {secs:.1f} s, "
+        f"issues {sorted(got)}, partial {doc.get('partial', False)} on {card}")
+    if rc != 0 or doc.get("partial") or got != want:
+        raise SystemExit(f"analyze cli: the milestone corpus gave exit {rc}, {sorted(got)}; "
+                         f"want both owned and {sorted(want)}")
+    for name, code in MILESTONE:
+        rc, out, secs = analyze_cli("--bin-runtime", "-c", code, "-t", "2", "-o", "json")
+        issues = [(i["swc-id"], i["address"], i["title"], i["severity"], i["function"])
+                  for i in json.loads(out)["issues"]]
+        log(f"[analyze cli] -c {code}: exit {rc}, {secs:.1f} s, issues {issues}")
+        if rc != 0 or issues != [ANALYZE_SWC[name] + ("fallback",)]:
+            raise SystemExit(f"analyze cli: -c {code} gave exit {rc}, {issues}")
+
+    pin = json.loads(VENDORED_PIN.read_text())
+    paths = sorted(wave.CONTRACTS.glob("*.sol.o"))
+    rows = [(p.read_text().strip(), "", p.name) for p in paths]
+    spent = {"prepass": 0.0, "synthesis": 0.0}
+    timed = {}
+    for key, attr in (("prepass", "corpus_device_prepass"), ("synthesis", "_owned_result")):
+        fn = timed[attr] = getattr(corpus, attr)
+
+        def timing(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                sync()
+                spent[_key] += time.perf_counter() - t0
+
+        setattr(corpus, attr, timing)
+    resilience.DegradationLog().reset()
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = corpus.analyze_corpus(rows, transaction_count=2, execution_timeout=86400,
+                                        waves=VENDORED_WAVES)
+    finally:
+        for attr, fn in timed.items():
+            setattr(corpus, attr, fn)
+    sync()
+    analyze_s = time.perf_counter() - t0
+    launches = read_launches()
+    t1 = time.perf_counter()
+    contracts = [EVMContract(code=code, name=name) for code, _, name in rows]
+    report, errors = build_report(contracts, results, {})
+    rendered = {form: len(getattr(report, form)()) for form in
+                ("as_text", "as_markdown", "as_json", "as_swc_standard_format")}
+    render_s = time.perf_counter() - t1
+    stats = next((r["device_prepass"] for r in results if r.get("device_prepass")), {})
+    budget = corpus.resolve_prepass_budget_s(len(rows), execution_timeout=86400)
+    by_swc = {}
+    mismatched, compared, replayed = [], 0, 0
+    pinned = {name: (owned, fps) for name, owned, fps in pin["contracts"]}
+    for r in results:
+        fps = sorted([i["swc-id"], i["address"], i["title"], i["severity"], i["function"],
+                      i["description"]] for i in r["issues"])
+        for i in r["issues"]:
+            by_swc[i["swc-id"]] = by_swc.get(i["swc-id"], 0) + 1
+            if not replays_to(i, device="cpu"):
+                raise SystemExit(f"analyze: {r['name']}'s SWC-{i['swc-id']} witness at pc "
+                                 f"{i['address']} does not replay to it")
+            replayed += 1
+        jax_owned, jax_fps = pinned[r["name"]]
+        log(f"[analyze] {r['name']}: owned {bool(r.get('owned'))} (JAX pin: {jax_owned}), "
+            f"issues {[fp[:5] for fp in fps]}"
+            + ("" if r["complete"] else f"; {r['error']}"))
+        # the owned flags are held too: the card owning less, or owning
+        # what the JAX side does not (issues with no walk behind them),
+        # is a disagreement like a differing fingerprint
+        if bool(r.get("owned")) != jax_owned or fps != jax_fps:
+            mismatched.append(r["name"])
+        compared += bool(jax_owned)
+    owned = sum(bool(r.get("owned")) for r in results)
+    jax_owned = sum(bool(o) for o, _ in pinned.values())
+    log(f"[analyze] {len(rows)} vendored contracts x 32 lanes, 2 transactions, waves capped at "
+        f"{VENDORED_WAVES} a phase, budget {budget:.0f} s: {analyze_s:.3f} s to the "
+        f"results (prepass {spent['prepass']:.3f} s, synthesis {spent['synthesis']:.3f} s), "
+        f"rendering every form {render_s:.3f} s ({rendered} chars); wall to report "
+        f"{analyze_s + render_s:.3f} s, shares prepass "
+        f"{spent['prepass'] / (analyze_s + render_s):.4f}, synthesis "
+        f"{spent['synthesis'] / (analyze_s + render_s):.4f}, rendering "
+        f"{render_s / (analyze_s + render_s):.4f}; waves {stats.get('waves')}, owned {owned} of "
+        f"{len(rows)} (JAX pin {jax_owned}, {compared} compared), issues by SWC {dict(sorted(by_swc.items()))}, "
+        f"{replayed} witnesses replayed, not analyzed {len(errors)}, launches {launches} on "
+        f"{card}")
+    if mismatched or not compared or sorted(pinned) != sorted(r["name"] for r in results):
+        raise SystemExit(f"analyze: owned flags or fingerprints differ from the JAX pin "
+                         f"({compared} owned contracts compared): {mismatched}")
+    for name in EXPLORE_KERNELS:
+        if not launches[name]:
+            raise SystemExit(f"analyze: the vendored corpus never launched {name}")
+    if resilience.DegradationLog().marker():
+        raise SystemExit(f"analyze: the degradation log holds "
+                         f"{resilience.DegradationLog().events}")
+    return dict(launches=launches)
+
+
 def phase_bignum(card):
     """The bit-serial u256 loops at full width (candidates for kernels)."""
     import numpy as np
@@ -2382,6 +2550,9 @@ def main() -> int:
     if args == ["--explore"]:
         phase_explore(card)
         return 0
+    if args == ["--analyze"]:
+        phase_analyze(card)
+        return 0
     main_path = phase_main_path(card)
     sync()
     phase_profile(card, main_path["wall"] / main_path["steps"] * 1e3)
@@ -2395,6 +2566,8 @@ def main() -> int:
     flip = phase_flip(card, sym_wave["frontier"])
     sync()
     explore = phase_explore(card)
+    sync()
+    analyze = phase_analyze(card)
     sync()
     kern.update(phase_portfolio_kernels(card, flip["programs"], flip["solving"]))
     sync()
@@ -2424,9 +2597,11 @@ def main() -> int:
         "launches_flip": flip["launches"][name],
         "launches_explore": explore["launches"][name],
         "launches_explore_pipelined": explore["piped_launches"][name],
+        "launches_analyze": analyze["launches"][name],
         **({"launches_many": main_path["launches"]["slot_write_many"],
             "launches_many_symbolic_wave": sym_wave["launches"]["slot_write_many"],
             "launches_many_explore": explore["launches"]["slot_write_many"],
+            "launches_many_analyze": analyze["launches"]["slot_write_many"],
             "host_us_per_call_many": host_us["slot_write_many, 8 banks"]}
            if name == "slot_write" else {}),
         "mismatches": k.pop("mismatches"),

@@ -1,10 +1,48 @@
-"""Bytecode helpers the batched interpreter needs (the port's copy of
-`find_metadata_length` and `to_dense` from the JAX package's
-disassembler/asm.py)."""
+"""Bytecode helpers: the port's copy of the JAX package's
+disassembler/asm.py without its assembler and easm view. The
+instruction list (`disassemble`, `find_op_code_sequence`) feeds
+`Disassembly`; `to_dense` gives the batched interpreter its opcode and
+jumpdest arrays."""
 
 from __future__ import annotations
 
+import re
+from typing import Dict, Generator, List
+
 import numpy as np
+
+from mythril_tpu_torch.support.opcodes import BYTE_TO_NAME
+
+regex_push = re.compile(r"^PUSH(\d{1,2})$")
+
+
+class EvmInstruction:
+    """One disassembled instruction (`to_dict` gives the reference's
+    {'address', 'opcode', 'argument'} record)."""
+
+    __slots__ = ("address", "opcode", "argument")
+
+    def __init__(self, address: int, opcode: str, argument: str = None):
+        self.address = address
+        self.opcode = opcode
+        self.argument = argument
+
+    def to_dict(self) -> Dict:
+        result = {"address": self.address, "opcode": self.opcode}
+        if self.argument is not None:
+            result["argument"] = self.argument
+        return result
+
+
+
+def safe_decode(code: str) -> bytes:
+    """'0x...' or bare hex -> bytes."""
+    if code.startswith("0x"):
+        code = code[2:]
+    code = code.strip().replace("\n", "")
+    if len(code) % 2:
+        code += "0"  # tolerate odd-length hex the way the reference does
+    return bytes.fromhex(code)
 
 
 def find_metadata_length(code: bytes) -> int:
@@ -21,6 +59,48 @@ def find_metadata_length(code: bytes) -> int:
     if b"bzzr" in blob or b"ipfs" in blob:
         return meta_len
     return 0
+
+
+def disassemble(bytecode: bytes) -> List[EvmInstruction]:
+    """Bytecode -> instruction list. PUSH arguments are hex strings; a
+    trailing PUSH whose operand runs past the end of the code is
+    zero-padded and never absorbs the solc metadata after it."""
+    instructions = []
+    length = len(bytecode) - find_metadata_length(bytecode)
+    address = 0
+    while address < length:
+        op = bytecode[address]
+        name = BYTE_TO_NAME.get(op, "INVALID")
+        match = regex_push.match(name)
+        if match:
+            n = int(match.group(1))
+            argument = bytecode[address + 1 : min(address + 1 + n, length)]
+            argument = argument + b"\x00" * (n - len(argument))
+            instructions.append(
+                EvmInstruction(address, name, "0x" + argument.hex())
+            )
+            address += 1 + n
+        else:
+            instructions.append(EvmInstruction(address, name))
+            address += 1
+    return instructions
+
+
+def is_sequence_match(pattern, instruction_list, index) -> bool:
+    for i, pattern_slot in enumerate(pattern):
+        if index + i >= len(instruction_list):
+            return False
+        if instruction_list[index + i].opcode not in pattern_slot:
+            return False
+    return True
+
+
+def find_op_code_sequence(pattern, instruction_list) -> Generator[int, None, None]:
+    """Yield indices where the opcode-set sequence matches
+    (reference: asm.py:62)."""
+    for i in range(0, len(instruction_list) - len(pattern) + 1):
+        if is_sequence_match(pattern, instruction_list, i):
+            yield i
 
 
 def to_dense(bytecode: bytes, max_len: int = None):

@@ -30,6 +30,12 @@ class Args(object, metaclass=Singleton):
         # Off by default in the port (on in the JAX package): a wave's
         # step loop holds the GIL, so it measured no faster on the card.
         self.pipeline = False
+        # Device ownership (CLI --device-ownership): a contract whose
+        # exploration the completeness gates accept is reported from its
+        # device evidence alone. auto owns; never would send
+        # every contract to the host walk, which is not ported, so the
+        # corpus analysis raises on it.
+        self.device_ownership = "auto"
 
 
 args = Args()

@@ -6,8 +6,11 @@ wave's flip frontier (`flip_frontier`: harvest, candidates, the term
 decode, `lower`), a `device_solve_batch` of one query (the SMT term
 layer, `compile_program`, enumeration through `portfolio_eval`) and a
 two-contract `DeviceCorpusExplorer` run (laser/batch/explore.py, with
-its resilience, checkpoint, span and capture modules), and checks that `jax` never entered `sys.modules` and that no module of the
-JAX package did either. A source scan finds no import of either in the
+its resilience, checkpoint, span and capture modules), a one-contract
+`analyze_corpus` with its issue synthesis, replay and report in every
+form (analysis/, with the command line's `build_report`), and checks
+that `jax` never entered `sys.modules` and that no module of the JAX
+package did either. A source scan finds no import of either in the
 port's files or in chip_smoke.py. Without a CUDA device, an entry point
 called with no device raises instead of carrying on on the CPU.
 """
@@ -63,6 +66,20 @@ res = explore.DeviceCorpusExplorer(["60003560f81c604214600d57005b600160005500", 
                                    device="cpu").run()
 assert res["stats"]["waves"] >= 2, res["stats"]
 assert "selfdestruct" in res["contracts"][1]["triggers"], res["contracts"][1]
+from mythril_tpu_torch.analysis import corpus, evidence, prepass, replay  # noqa: F401
+from mythril_tpu_torch.analysis.report import Report
+from mythril_tpu_torch.ethereum.evmcontract import EVMContract
+from mythril_tpu_torch.interfaces import cli
+from mythril_tpu_torch.support.signatures import SignatureDB
+(owned,) = corpus.analyze_corpus([("604260003560f81c14600d57005b33ff", "", "g")],
+                                 waves=8, device="cpu")
+assert owned["owned"] and owned["issues"][0]["swc-id"] == "106", owned
+assert replay.replays_to(owned["issues"][0], device="cpu")
+report, errors = cli.build_report([EVMContract(code="604260003560f81c14600d57005b33ff",
+                                               name="g")], [owned], {})
+assert not errors and all(f() for f in (report.as_text, report.as_markdown,
+                                        report.as_json, report.as_swc_standard_format))
+assert SignatureDB().get("0xa9059cbb") == ["transfer(address,uint256)"]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "mythril_tpu" or m.startswith("mythril_tpu."))
@@ -114,6 +131,8 @@ def test_entry_points_without_device_raise_where_no_cuda():
     from mythril_tpu_torch.laser.conformance import run_cases
     from mythril_tpu_torch.laser import flip_frontier
     from mythril_tpu_torch.laser.batch import explore
+    from mythril_tpu_torch.analysis import corpus, replay
+    from mythril_tpu_torch.interfaces import cli
     from mythril_tpu_torch.laser.smt import terms as T
     from mythril_tpu_torch.laser.smt.solver import portfolio
     from mythril_tpu_torch.ops.keccak import keccak256
@@ -133,7 +152,10 @@ def test_entry_points_without_device_raise_where_no_cuda():
                  lambda: portfolio.rank_impact_vars(prog),
                  lambda: flip_frontier.run_generations(1, 2, 1),
                  lambda: explore.DeviceCorpusExplorer(["33ff"]),
-                 lambda: explore.DeviceSymbolicExplorer("33ff")):
+                 lambda: explore.DeviceSymbolicExplorer("33ff"),
+                 lambda: corpus.analyze_corpus([("33ff33ff", "", "k")]),
+                 lambda: replay.replay_sequence({"steps": []}, 0),
+                 lambda: cli.main(["analyze", "--bin-runtime", "-c", "33ff33ff"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
