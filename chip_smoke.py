@@ -10,6 +10,9 @@
                                             # device explorer (phase 8)
     python3 chip_smoke.py --analyze         # device, build, then only the
                                             # analysis (phase 9)
+    python3 chip_smoke.py --solver          # device, build, the pinned wave
+                                            # (phase 6), then only the host
+                                            # solver stack (phase 6b)
     python3 chip_smoke.py --ab-host-reads   # device, build, then only the
                                             # A/B of the u256 loops' host read
     python3 chip_smoke.py --ab-windows      # device, build, then only the
@@ -28,7 +31,9 @@ non-zero (nothing is caught):
    host's CPU model and the host's dispatch time per trivial CUDA launch
    (median of 1000), which sets the pace of a host-bound step;
 2. build: compile every csrc/*.cu with nvcc for sm_90a, one nvcc per
-   source, all started together (seconds and ptxas report printed);
+   source, all started together (seconds and ptxas report printed), and
+   meanwhile the host solver library (native/host/cdcl.cpp + blast.cpp)
+   with g++ (its seconds printed);
 3. kernels, each held bit for bit against its plain PyTorch version on
    the same tensors, then timed (CUDA events around a CUDA-graph replay
    of 50 launches, median of 25) beside its bound and its plain
@@ -80,6 +85,21 @@ non-zero (nothing is caught):
    queries) must equal the JAX package's canonical digests
    (mythril_tpu_torch/laser/flip_frontier_pinned.json), and a 128-lane
    wave on the card must equal a device="cpu" run, every field;
+6b. solver (laser/smt/solver: check_terms, the CDCL sprint and marathon),
+   outside any exploration: the solving queries, six 256-bit EVM-shaped
+   queries (selector extract, addition overflow, division, signed
+   compare, two unsat) and the pinned wave's generation-0 flip queries,
+   once each; every verdict held to the JAX package's
+   (tests/test_torch_solver_chip_pinned.json: a sat/unsat disagreement
+   fails, unknown never does), every sat witness through
+   validate_witness (0 invalid), 0 race errors (the sprint decides
+   every query, so no race starts; no path of the port starts one: the
+   race's first caller is the host walk, not ported); then the
+   --parallel-solving escape (the card held as the explorer's ladder
+   holds it, so no race starts) on a query the CDCL cannot
+   decide in 300 ms, which must launch portfolio_sls on the card (the
+   search scores its own candidates; portfolio_eval does not launch
+   here); the kernels line's `launches_solver`;
 7. flip frontier (laser/flip_frontier.py): the explorer's geometry, 13
    contracts x 32 lanes, 68 B calldata, for 4 generations, each sym_run,
    ArenaView, decode and candidates, lower and compile, one
@@ -122,16 +142,22 @@ non-zero (nothing is caught):
    with both contracts owned, SWC-106 at pc 15 and SWC-110 at pc 0, and
    each contract alone through `-c` (the same issues); then the 13
    vendored contracts through analyze_corpus on the card at the
-   small-corpus prepass geometry under its wall budget, the waves a phase
-   capped at 8 (the JAX package's cap is 48): per contract owned or not
-   and its issue fingerprints, both of which must equal the JAX
-   package's, pinned in tests/test_torch_analyze_vendored_pinned.json
-   from a JAX run under its enumeration-only solver (the run fails if no
-   owned contract was compared), every witness replayed on the CPU to its pc
-   (analysis/replay.py), the report rendered in every form, the wall to
-   the report split into prepass, synthesis and rendering, and the
-   kernels' launches (all four of the explorer's must launch; the kernels
-   line's `launches_analyze`);
+   small-corpus prepass geometry, the waves a phase capped at 8 (the JAX
+   package's cap is 48), with the host escalation ladder on, twice:
+   (a) in a process of its own, the ladder at a cap that does not bind
+   under deterministic_solving and the enumeration-only device solver,
+   per contract owned or not and its issue fingerprints held to the JAX
+   package's (tests/test_torch_analyze_vendored_ladder_pinned.json, the
+   same run of the JAX device half on the CPU); (b) the default funnel
+   and cap: per contract owned or not and its issue fingerprints, held
+   to the same pin (the fingerprints carry no witness values), host_sat
+   (it fails at 0),
+   ladder_deferred, the report rendered in every form and the wall to
+   the report split into prepass, synthesis and rendering. Every witness
+   of both is replayed on the CPU to its pc (analysis/replay.py); all
+   four of the explorer's kernels must launch in (b) (the kernels line's
+   `launches_analyze`). Phase 8 runs with the ladder off (a zero cap), as
+   it did before the ladder was ported;
 10. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
    own programs (the search also on the cube fan's), on queries the
    search solves (before the first step and mid-search) and on
@@ -154,8 +180,8 @@ non-zero (nothing is caught):
    (mythril_tpu_torch/laser/vmtests_device_verdicts.json), with no
    mismatch and no "fail:";
 12. report: the `kernels` JSON line (each kernel's launches on every
-   path: main, symbolic wave, flip frontier, explore, analyze), then the result
-   line.
+   path: main, symbolic wave, flip frontier, explore, analyze, solver),
+   then the result line.
 
 After 4 it also prints where a main-path step's time goes
 (torch.profiler: CUDA kernels per step, device busy share, top kernels)
@@ -204,7 +230,10 @@ RESTART_BASES = (2, 4)  # the restart-forcing checks' Luby unit (the default is 
 FLIP_STEPS = 192  # device_solve_batch's first pass (PORTFOLIO_DEFAULTS first_pass_steps)
 OCCUPANCY_Q = 128  # queries of the timed occupancy run
 BATCH_CHECK_Q = 48  # programs of an explorer batch held to the portfolio's plain versions
-PROFILE_TRIES = 5  # profiles kernel_ms takes before it reports a kernel as not measured
+PROFILE_TRIES = 10  # profiles kernel_ms takes before it reports a kernel as not measured
+# (a profile sometimes records no device activity at all: 5 tries missed
+# one kernels-line shape on an H100 in one run, while the shapes timed
+# before and after it were seen)
 ENUM_K = 4096  # device_enumerate's chunk: portfolio_eval's timed shape
 
 # H100 SXM peaks (NVIDIA data sheet; the full 700 W power limit)
@@ -383,10 +412,19 @@ BUILD_REPORTS = {}  # csrc stem -> nvcc's output (ptxas -v)
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from mythril_tpu_torch.native import build
 
     t0 = time.perf_counter()
-    built = build.build(verbose=True)
+    with ThreadPoolExecutor(1) as pool:
+        # the host solver library (g++) builds while nvcc runs
+        host = pool.submit(build.build_host)
+        built = build.build(verbose=True)
+        host_s = host.result()
+    log(f"[build] host solver library {build.lib_path(build.HOST_STEM).name} from "
+        f"native/host/{' + '.join(build.HOST_SOURCES)}: g++ {build.gxx()} "
+        + (f"{host_s:.2f} s" if host_s else "already built from these sources"))
     for stem, (secs, report) in built.items():
         BUILD_REPORTS[stem] = report
         table = ptxas_table(report)
@@ -1178,7 +1216,8 @@ def phase_sym_parity():
     flip_pinned = ff.load_pinned()
     if flip_pinned["settings"] != wave.PIN_SETTINGS:
         raise SystemExit(f"pinned frontier digests were taken at {flip_pinned['settings']}")
-    frontier = ff.pinned_wave_frontier(ArenaView(out), symb.base.code_id.cpu().numpy())
+    view = ArenaView(out)
+    frontier = ff.pinned_wave_frontier(view, symb.base.code_id.cpu().numpy())
     if frontier != {k: v for k, v in flip_pinned.items() if k != "settings"}:
         raise SystemExit("the pinned wave's flip frontier decoded on the card differs from "
                          "the JAX package's pinned digests")
@@ -1199,6 +1238,23 @@ def phase_sym_parity():
         raise SystemExit(f"the {lanes}-lane wave on the card differs from the CPU in {differ}")
     log(f"[parity] {lanes}-lane wave: the card equals a device='cpu' run in every field, "
         f"arena included")
+    return flip_queries(view, symb.base.code_id.cpu().numpy())
+
+
+def flip_queries(view, code_ids):
+    """Generation 0's flip queries of the pinned wave's view (the port's,
+    or the JAX package's for the solver phase's pin): [(name, raw
+    constraints)], named by contract file and target (pc, taken)."""
+    from mythril_tpu_torch.laser import flip_frontier as ff
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+
+    names = [p.name for p in sorted(wave.CONTRACTS.glob("*.sol.o"))]
+    tracks = {}
+    by = ff.lanes_by_contract(code_ids)
+    ff.harvest(view, tracks, by)
+    cands, _tried, _opaque = ff.collect_candidates(view, tracks, by)
+    return [(f"flip:{names[int(code_ids[lane])]}:{target[0]}:{target[1]}",
+             [c.raw for c in conds]) for lane, _k, conds, target in cands]
 
 
 
@@ -1315,17 +1371,15 @@ def synthetic_programs():
 
 
 # queries that the search solves inside SLS_CHECK_STEPS at the check's
-# seed, built from the port's term layer: one a seeded lane solves before
-# the first step, others after a few steps (found with the plain version)
-def solving_programs():
-    from mythril_tpu_torch.laser.smt import terms as T
-    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
-    from mythril_tpu_torch.laser.smt.solver.preprocess import lower
-
+# seed: one a seeded lane solves before the first step, others after a
+# few steps (found with the plain version). Built on the term layer T
+# (the port's here; the JAX pin of the solver phase builds the same
+# queries on the JAX package's)
+def solving_queries(T):
     x, y = T.bv_var("chip_sx", 32), T.bv_var("chip_sy", 32)
     s, t = T.bv_var("chip_ss", 16), T.bv_var("chip_st", 16)
     c = lambda v: T.bv_const(v, 32)  # noqa: E731
-    queries = [
+    return [
         [T.ult(s, t), T.ult(T.bv_const(0x8000, 16), s)],
         [T.slt(x, c(0)), T.eq(T.extract(7, 0, x), T.bv_const(0x80, 8))],
         [T.eq(T.mul(x, c(3)), c(0x300)), T.ult(x, c(0x1000))],
@@ -1334,7 +1388,14 @@ def solving_programs():
         [T.eq(T.add(x, y), c(0x1234)), T.ult(x, c(100))],
         [T.eq(T.lshr(x, c(4)), c(0x12))],
     ]
-    return [pf.compile_program(lower(q)[0]) for q in queries]
+
+
+def solving_programs():
+    from mythril_tpu_torch.laser.smt import terms as T
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+    from mythril_tpu_torch.laser.smt.solver.preprocess import lower
+
+    return [pf.compile_program(lower(q)[0]) for q in solving_queries(T)]
 
 
 @contextmanager
@@ -1749,7 +1810,6 @@ def phase_flip(card, big):
     from mythril_tpu_torch.laser import symbolic_wave as wave
 
     per_gen = []
-    last = read_launches()
 
     def report(g, res):
         nonlocal last
@@ -1763,6 +1823,7 @@ def phase_flip(card, big):
             f"solve {res['solve_ms']:.1f}; launches {launches} on {card}")
 
     reset_launches()
+    last = read_launches()
     t0 = time.perf_counter()
     stripes = len(wave.load_contracts())
     history = ff.run_generations(stripes, ff.LANES_PER_CONTRACT, ff.GENERATIONS, log=report)
@@ -1801,6 +1862,152 @@ def phase_flip(card, big):
     solving = flip_loop_check(card)
     return dict(launches=launches, per_generation=per_gen, wall=wall, programs=progs,
                 solving=solving, big_launches=big_launches)
+
+
+# phase_solver: the host solver stack (check_terms: the CDCL sprint and
+# marathon, the --parallel-solving escape on the card) outside any
+# exploration, on queries
+# whose verdicts the JAX package's check_terms gave on the CPU
+# (tests/test_torch_solver.py --pin-chip)
+SOLVER_PIN = ROOT / "tests" / "test_torch_solver_chip_pinned.json"
+SOLVER_TIMEOUT_MS = 10_000
+#: the --parallel-solving escape's query gets this budget: the CDCL cannot
+#: factor its 64-bit product in it
+ESCAPE_TIMEOUT_MS = 300
+ESCAPE_N = 2690070737 * 3210234581  # two 32-bit primes
+
+
+def evm_queries(T):
+    """256-bit queries of the shapes the analysis poses (those of
+    tests/laser/smt/test_solver.py): a selector extract, an addition
+    overflow, a division, a signed compare, and two unsat ones."""
+    b = lambda v: T.bv_const(v, 256)  # noqa: E731
+    cd, x, y = (T.bv_var(f"chip_evm_{n}", 256) for n in ("calldata", "x", "y"))
+    return [
+        ("evm_selector", [T.eq(T.extract(255, 224, cd), T.bv_const(0xA9059CBB, 32)),
+                          T.ult(T.lshr(T.shl(cd, b(32)), b(96)), b(1 << 160))]),
+        ("evm_add_overflow", [T.ult(T.add(x, y), x), T.ult(y, b(1 << 200))]),
+        ("evm_division", [T.eq(T.udiv(x, b(3)), b(5)), T.eq(T.urem(x, b(3)), b(1))]),
+        ("evm_signed_compare", [T.slt(x, b(0)), T.slt(b((1 << 256) - 5), x)]),
+        ("evm_no_overflow_unsat", [T.ult(T.add(x, y), x), T.ult(x, b(1 << 100)),
+                                   T.ult(y, b(1 << 100))]),
+        ("evm_even_unsat", [T.eq(T.mul(x, b(2)), b(1)), T.ult(y, x)]),
+    ]
+
+
+def escape_query(T):
+    x, y = T.bv_var("chip_esc_x", 64), T.bv_var("chip_esc_y", 64)
+    c = lambda v: T.bv_const(v, 64)  # noqa: E731
+    return [T.eq(T.mul(x, y), c(ESCAPE_N)), T.ult(c(1), x), T.ult(x, c(1 << 32)),
+            T.ult(c(1), y), T.ult(y, c(1 << 32))]
+
+
+def solver_corpus(T, flips):
+    """[(name, raw constraints)] of the solver phase on the term layer T:
+    solving_queries, the EVM shapes and generation 0's flip queries."""
+    return ([(f"solving{i}", q) for i, q in enumerate(solving_queries(T))]
+            + evm_queries(T) + list(flips))
+
+
+def phase_solver(card, flips):
+    """check_terms on the card, outside any exploration: every query of
+    the corpus once (the sprint decides each, so no race starts), each
+    verdict held to the JAX pin (a sat/unsat disagreement fails; unknown
+    is never one), every sat witness through validate_witness, race
+    errors must be 0. Then the --parallel-solving escape on one query
+    the CDCL cannot decide in ESCAPE_TIMEOUT_MS, with the card held
+    (DEVICE_BUSY) as the explorer's ladder holds it, so no race starts:
+    one portfolio_sls search on the card."""
+    from mythril_tpu_torch.laser.smt import terms as T
+    from mythril_tpu_torch.laser.smt.evalterm import eval_term
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+    from mythril_tpu_torch.laser.smt.solver import solver as S
+    from mythril_tpu_torch.laser.smt.solver.device_race import DEVICE_BUSY
+    from mythril_tpu_torch.laser.smt.solver.preprocess import lower
+    from mythril_tpu_torch.laser.smt.solver.solver_statistics import SolverStatistics
+    from mythril_tpu_torch.support import resilience
+    from mythril_tpu_torch.support.support_args import args
+
+    pin = json.loads(SOLVER_PIN.read_text())["verdicts"]
+    corpus = solver_corpus(T, flips)
+    if sorted(pin) != sorted([n for n, _ in corpus] + ["escape"]):
+        raise SystemExit(f"solver: the corpus {[n for n, _ in corpus]} is not the pinned one "
+                         f"{sorted(pin)}")
+    saved = (args.deterministic_solving, args.parallel_solving)
+    args.deterministic_solving, args.parallel_solving = False, False
+    stats = SolverStatistics()
+    stats.reset()
+    resilience.DegradationLog().reset()
+    S.reset_blast_session()
+
+    def valid(raw, model):
+        lowered = lower(raw)[0]
+        prog = pf.compile_program(lowered) if lowered else None
+        if prog is not None:
+            return pf.validate_witness(prog, model.assignment)
+        return all(eval_term(c, model.assignment) for c in raw)
+
+    sync()
+    reset_launches()
+    results = {}
+    t_phase = time.perf_counter()
+    try:
+        for name, raw in corpus:
+            t0 = time.perf_counter()
+            verdict, model = S.check_terms(raw, timeout_ms=SOLVER_TIMEOUT_MS)
+            ms = (time.perf_counter() - t0) * 1e3
+            results[name] = (verdict, ms, valid(raw, model) if verdict == "sat" else None)
+        args.parallel_solving = True
+        before = read_launches()
+        t0 = time.perf_counter()
+        # as on the explorer's ladder: the card is held, so no race starts
+        DEVICE_BUSY.acquire()
+        try:
+            escape, escape_model = S.check_terms(escape_query(T),
+                                                 timeout_ms=ESCAPE_TIMEOUT_MS)
+        finally:
+            DEVICE_BUSY.release()
+        escape_ms = (time.perf_counter() - t0) * 1e3
+        sync()
+        after = read_launches()
+        escape_launches = {k: after[k] - before[k] for k in FLIP_KERNELS}
+    finally:
+        args.deterministic_solving, args.parallel_solving = saved
+        S.reset_blast_session()
+    sync()
+    wall = time.perf_counter() - t_phase
+    launches = read_launches()
+    disagree, invalid = [], []
+    for name, _raw in corpus:
+        verdict, ms, ok = results[name]
+        log(f"[solver] {name}: {verdict} {ms:.1f} ms (JAX pin {pin[name]})")
+        if {verdict, pin[name]} == {"sat", "unsat"}:
+            disagree.append((name, verdict, pin[name]))
+        if ok is False:
+            invalid.append(name)
+    if {escape, pin["escape"]} == {"sat", "unsat"}:
+        disagree.append(("escape", escape, pin["escape"]))
+    if escape == "sat" and not all(eval_term(c, escape_model.assignment)
+                                   for c in escape_query(T)):
+        invalid.append("escape")
+    sats = sum(v == "sat" for v, _, _ in results.values())
+    log(f"[solver] {len(corpus)} queries in {wall:.3f} s: {sats} sat witnesses, "
+        f"{len(invalid)} invalid; {len(disagree)} sat/unsat disagreements with the JAX pin; "
+        f"races started {stats.race_started}, errors {stats.race_errors}; sprint "
+        f"{stats.sprint_time * 1e3:.1f} ms, marathon {stats.marathon_time * 1e3:.1f} ms; "
+        f"sat from the card {stats.device_sat_count}, from the CDCL {stats.cdcl_sat_count}; "
+        f"launches {launches} on {card}")
+    log(f"[solver] --parallel-solving escape (card held, no race, {ESCAPE_TIMEOUT_MS} ms): "
+        f"{escape} in "
+        f"{escape_ms:.1f} ms (JAX pin {pin['escape']}), launches {escape_launches}")
+    if disagree or invalid:
+        raise SystemExit(f"solver: disagreements {disagree}, invalid witnesses {invalid}")
+    if stats.race_errors or resilience.DegradationLog().marker():
+        raise SystemExit(f"solver: {stats.race_errors} race errors, degradation log "
+                         f"{resilience.DegradationLog().events}")
+    if not escape_launches["portfolio_sls"]:
+        raise SystemExit("solver: the --parallel-solving escape never launched portfolio_sls")
+    return dict(launches=launches)
 
 
 # phase_explore: the explorer's small-corpus prepass geometry
@@ -1868,7 +2075,7 @@ def run_explore(label, codes, names, card, **kw):
             f"+ {r['steering']} steering queries, {r['opaque']} opaque targets, {r['lowered']} "
             f"queries lowered, device solve {r['solve_ms']:.1f} ms, verdicts {r['verdicts']}, "
             f"{r['witnesses']} witnesses ({r['witness_invalid']} invalid), {r['deferred']} "
-            f"survivors deferred by the absent host ladder")
+            f"survivors deferred by the host ladder's cap")
     poison = sum(len(t.poison_carries) for t in ex.tracks)
     log(f"[explore {label}] {len(codes)} contracts x {kw['lanes_per_contract']} lanes: "
         f"{wall:.3f} s, {st['waves']} waves over {st['transactions']} phases, {st['device_steps']} "
@@ -2017,7 +2224,21 @@ def phase_explore(card):
     default) with the same seed; leg B at corpus scale, its first wave
     held to a CPU run and its first batch of queries to the portfolio's
     plain versions; leg C on the milestone corpus, its first wave held
-    to a CPU run. Legs B and C take the default schedule."""
+    to a CPU run. Legs B and C take the default schedule. The host
+    ladder is off here (a zero cap: every device survivor deferred), as
+    this phase has measured the funnel since it was written; the analyze
+    phase runs the ladder."""
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = args.sprint_cap_s
+    args.sprint_cap_s = 0.0
+    try:
+        return _phase_explore(card)
+    finally:
+        args.sprint_cap_s = saved
+
+
+def _phase_explore(card):
     from mythril_tpu_torch.laser import symbolic_wave as wave
 
     codes = [c.hex() for c in wave.load_contracts()]
@@ -2085,13 +2306,19 @@ def phase_explore(card):
 
 
 # phase_analyze: `python -m mythril_tpu_torch analyze` and analyze_corpus
-# on the card. The 13 vendored contracts run at the small-corpus prepass
-# geometry under its wall budget, with the waves a phase capped at
-# VENDORED_WAVES (8, the JAX package's cap is 48), the geometry the JAX
-# pin VENDORED_PIN was taken at (per contract: name, owned, issue
-# fingerprints; made by `tests/test_torch_analyze.py --pin-vendored`)
-VENDORED_PIN = ROOT / "tests" / "test_torch_analyze_vendored_pinned.json"
+# on the card. The 13 vendored contracts run twice at the small-corpus
+# prepass geometry (32 lanes a contract, 2 transactions) with the waves a
+# phase capped at VENDORED_WAVES (8, the JAX package's cap is 48), both
+# with the host escalation ladder on: (a) pinned, with the ladder at
+# VENDORED_LADDER_CAP_S (it does not bind) under deterministic_solving
+# and the enumeration-only device solver, from a fresh solver session in
+# a process of its own, held to the JAX pin VENDORED_LADDER_PIN (per
+# contract: name, owned, issue fingerprints; made by
+# `tests/test_torch_analyze.py --pin-vendored-ladder`); (b) the default:
+# the card's whole funnel, then the ladder at its default cap.
 VENDORED_WAVES = 8
+VENDORED_LADDER_PIN = ROOT / "tests" / "test_torch_analyze_vendored_ladder_pinned.json"
+VENDORED_LADDER_CAP_S = 120.0
 ANALYZE_SWC = {"gated_kill": ("106", 15, "Unprotected Selfdestruct", "High"),
                "always_assert": ("110", 0, "Exception State", "Medium")}
 
@@ -2108,22 +2335,124 @@ def analyze_cli(*argv):
     return proc.returncode, proc.stdout, time.perf_counter() - t0
 
 
+def enum_only_solver(pf, **enum_kw):
+    """A `device_solve_batch` that only enumerates (`device_enumerate`),
+    as tests/test_torch_explore.py builds it: a verdict depends on the
+    query alone."""
+
+    def solve(queries, **_kw):
+        out = []
+        for q in queries:
+            prog, _, loss = pf.compile_program_relaxed(q)
+            if prog is None or not prog.var_slots:
+                out.append(pf.DeviceVerdict("unknown", None, loss or "QUERY_TRIVIAL", None))
+                continue
+            verdict, asn = pf.device_enumerate(prog, **enum_kw)
+            if verdict == "unknown":
+                out.append(pf.DeviceVerdict("unknown", None, "SLS_NONCONVERGED", None))
+            else:
+                out.append(pf.DeviceVerdict(verdict, asn, None, "enum"))
+        return out
+
+    return solve
+
+
+def vendored_rows():
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+
+    return [(p.read_text().strip(), "", p.name) for p in sorted(wave.CONTRACTS.glob("*.sol.o"))]
+
+
+def issue_fingerprints(result):
+    return sorted([i["swc-id"], i["address"], i["title"], i["severity"], i["function"],
+                   i["description"]] for i in result["issues"])
+
+
+@contextmanager
+def recorded_explorers():
+    """The DeviceCorpusExplorers run inside, in a list (for their
+    ladder_deferred)."""
+    from mythril_tpu_torch.laser.batch import explore
+
+    seen, run = [], explore.DeviceCorpusExplorer.run
+
+    def recording(self):
+        seen.append(self)
+        return run(self)
+
+    explore.DeviceCorpusExplorer.run = recording
+    try:
+        yield seen
+    finally:
+        explore.DeviceCorpusExplorer.run = run
+
+
+def replay_all(results):
+    """(witnesses replayed, [(contract, swc, pc) that do not replay]) on
+    the CPU."""
+    from mythril_tpu_torch.analysis.replay import replays_to
+
+    done, bad = 0, []
+    for r in results:
+        for i in r["issues"]:
+            done += 1
+            if not replays_to(i, device="cpu"):
+                bad.append((r["name"], i["swc-id"], i["address"]))
+    return done, bad
+
+
+def vendored_ladder_run(out_path, device=None):
+    """(a) in its own process (`chip_smoke.py --vendored-ladder OUT`):
+    the 13 vendored contracts through analyze_corpus with the ladder at
+    VENDORED_LADDER_CAP_S under deterministic_solving, the
+    enumeration-only device solver, a fresh solver session and memo
+    cache; writes the per-contract results, host_sat, ladder_deferred,
+    the wall, the kernels' launches, the witnesses' replays and the
+    degradation log to OUT as JSON."""
+    from mythril_tpu_torch.analysis import corpus
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+    from mythril_tpu_torch.laser.smt.solver import solver as S
+    from mythril_tpu_torch.support import model, resilience
+    from mythril_tpu_torch.support.support_args import args
+
+    args.deterministic_solving = True
+    args.sprint_cap_s = VENDORED_LADDER_CAP_S
+    S.reset_blast_session()
+    model.clear_cache()
+    pf.device_solve_batch = enum_only_solver(pf, device=device)
+    rows = vendored_rows()
+    resilience.DegradationLog().reset()
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded_explorers() as explorers:
+        results = corpus.analyze_corpus(rows, transaction_count=2, execution_timeout=86400,
+                                        waves=VENDORED_WAVES, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = next((r["device_prepass"] for r in results if r.get("device_prepass")), {})
+    replayed, not_replayed = replay_all(results)
+    Path(out_path).write_text(json.dumps({
+        "contracts": [[r["name"], bool(r.get("owned")), issue_fingerprints(r)] for r in results],
+        "errors": {r["name"]: r.get("error") for r in results if not r["complete"]},
+        "host_sat": stats.get("host_sat"), "waves": stats.get("waves"),
+        "ladder_deferred": sum(e.ladder_deferred for e in explorers), "wall_s": wall,
+        "launches": launches, "replayed": replayed, "not_replayed": not_replayed,
+        "degraded": resilience.DegradationLog().counts}))
+
+
 def phase_analyze(card):
     """The main path end to end: the milestone corpus through the command
     line in a subprocess on the card (SWC-106 and SWC-110, both owned),
-    then the 13 vendored contracts through analyze_corpus on the card at
-    full width: per contract owned or not and the issue fingerprints,
-    both held to the JAX pin, every witness
-    replayed on the CPU, the kernels' launches, and the wall split into
-    prepass, synthesis and rendering."""
+    then the 13 vendored contracts through analyze_corpus on the card
+    with the host ladder on: (a) pinned, in a process of its own, its
+    owned flags and issue fingerprints held to the JAX pin; (b) the
+    default funnel and cap, which must decide something on the ladder
+    (host_sat > 0). Every witness of both is replayed on the CPU to its
+    pc; (b)'s wall to the report is split into prepass, synthesis and
+    rendering."""
     import tempfile
-
-    from mythril_tpu_torch.analysis import corpus
-    from mythril_tpu_torch.analysis.replay import replays_to
-    from mythril_tpu_torch.ethereum.evmcontract import EVMContract
-    from mythril_tpu_torch.interfaces.cli import build_report
-    from mythril_tpu_torch.laser import symbolic_wave as wave
-    from mythril_tpu_torch.support import resilience
 
     with tempfile.TemporaryDirectory() as tmp:
         files = []
@@ -2149,9 +2478,70 @@ def phase_analyze(card):
         if rc != 0 or issues != [ANALYZE_SWC[name] + ("fallback",)]:
             raise SystemExit(f"analyze cli: -c {code} gave exit {rc}, {issues}")
 
-    pin = json.loads(VENDORED_PIN.read_text())
-    paths = sorted(wave.CONTRACTS.glob("*.sol.o"))
-    rows = [(p.read_text().strip(), "", p.name) for p in paths]
+    analyze_pinned_ladder(card)
+    return analyze_default(card)
+
+
+def analyze_pinned_ladder(card):
+    """(a): vendored_ladder_run in a subprocess on the card, held to the
+    JAX pin."""
+    import tempfile
+
+    pin = json.loads(VENDORED_LADDER_PIN.read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "vendored_ladder.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--vendored-ladder",
+                               str(out)], cwd=ROOT, capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit(f"analyze (a): the pinned ladder-on run failed "
+                             f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        got = json.loads(out.read_text())
+    pinned = {name: (owned, fps) for name, owned, fps in pin["contracts"]}
+    mismatched = []
+    for name, owned, fps in got["contracts"]:
+        log(f"[analyze a] {name}: owned {owned} (JAX pin: {pinned[name][0]}), issues "
+            f"{[fp[:5] for fp in fps]}" + (f"; {got['errors'][name]}" if name in got["errors"]
+                                           else ""))
+        if (owned, fps) != tuple(pinned[name]):
+            mismatched.append(name)
+    owned = sum(o for _, o, _ in got["contracts"])
+    log(f"[analyze a] pinned ladder-on run (cap {VENDORED_LADDER_CAP_S} s, deterministic "
+        f"solving, enumeration-only device solver): {got['wall_s']:.3f} s to the results "
+        f"({secs:.1f} s with the process), waves {got['waves']}, owned {owned} of "
+        f"{len(got['contracts'])} (JAX pin {sum(o for o, _ in pinned.values())}), host_sat "
+        f"{got['host_sat']} (JAX pin {pin['host_sat']}), ladder_deferred "
+        f"{got['ladder_deferred']}, {got['replayed']} witnesses replayed, launches "
+        f"{got['launches']} on {card}")
+    if mismatched or sorted(pinned) != sorted(n for n, _, _ in got["contracts"]):
+        raise SystemExit(f"analyze (a): owned flags or fingerprints differ from the JAX "
+                         f"ladder pin: {mismatched}")
+    if got["not_replayed"] or got["degraded"]:
+        raise SystemExit(f"analyze (a): witnesses that do not replay {got['not_replayed']}, "
+                         f"degradations {got['degraded']}")
+    # enumeration only: portfolio_eval launches only where a query's
+    # space is small enough to enumerate, which none of these may be
+    for name in PATH_KERNELS:
+        if not got["launches"][name]:
+            raise SystemExit(f"analyze (a): the vendored corpus never launched {name}")
+
+
+def analyze_default(card):
+    """(b): the 13 vendored contracts through analyze_corpus on the card
+    with the default funnel (SLS, cube fan, enumeration) and the ladder
+    at its default cap; per contract owned and its issue fingerprints,
+    held to VENDORED_LADDER_PIN, host_sat, ladder_deferred, the wall to
+    the report with its shares, every witness replayed."""
+    from mythril_tpu_torch.analysis import corpus
+    from mythril_tpu_torch.ethereum.evmcontract import EVMContract
+    from mythril_tpu_torch.interfaces.cli import build_report
+    from mythril_tpu_torch.support import resilience
+    from mythril_tpu_torch.support.support_args import args
+
+    pin = json.loads(VENDORED_LADDER_PIN.read_text())
+    pinned = {name: (owned, fps) for name, owned, fps in pin["contracts"]}
+    rows = vendored_rows()
     spent = {"prepass": 0.0, "synthesis": 0.0}
     timed = {}
     for key, attr in (("prepass", "corpus_device_prepass"), ("synthesis", "_owned_result")):
@@ -2171,8 +2561,9 @@ def phase_analyze(card):
     reset_launches()
     t0 = time.perf_counter()
     try:
-        results = corpus.analyze_corpus(rows, transaction_count=2, execution_timeout=86400,
-                                        waves=VENDORED_WAVES)
+        with recorded_explorers() as explorers:
+            results = corpus.analyze_corpus(rows, transaction_count=2,
+                                            execution_timeout=86400, waves=VENDORED_WAVES)
     finally:
         for attr, fn in timed.items():
             setattr(corpus, attr, fn)
@@ -2187,51 +2578,48 @@ def phase_analyze(card):
     render_s = time.perf_counter() - t1
     stats = next((r["device_prepass"] for r in results if r.get("device_prepass")), {})
     budget = corpus.resolve_prepass_budget_s(len(rows), execution_timeout=86400)
-    by_swc = {}
-    mismatched, compared, replayed = [], 0, 0
-    pinned = {name: (owned, fps) for name, owned, fps in pin["contracts"]}
+    by_swc, mismatched = {}, []
     for r in results:
-        fps = sorted([i["swc-id"], i["address"], i["title"], i["severity"], i["function"],
-                      i["description"]] for i in r["issues"])
         for i in r["issues"]:
             by_swc[i["swc-id"]] = by_swc.get(i["swc-id"], 0) + 1
-            if not replays_to(i, device="cpu"):
-                raise SystemExit(f"analyze: {r['name']}'s SWC-{i['swc-id']} witness at pc "
-                                 f"{i['address']} does not replay to it")
-            replayed += 1
-        jax_owned, jax_fps = pinned[r["name"]]
-        log(f"[analyze] {r['name']}: owned {bool(r.get('owned'))} (JAX pin: {jax_owned}), "
-            f"issues {[fp[:5] for fp in fps]}"
-            + ("" if r["complete"] else f"; {r['error']}"))
-        # the owned flags are held too: the card owning less, or owning
-        # what the JAX side does not (issues with no walk behind them),
-        # is a disagreement like a differing fingerprint
-        if bool(r.get("owned")) != jax_owned or fps != jax_fps:
+        got = (bool(r.get("owned")), issue_fingerprints(r))
+        if got != tuple(pinned.get(r["name"], (None, None))):
             mismatched.append(r["name"])
-        compared += bool(jax_owned)
+        log(f"[analyze b] {r['name']}: owned {got[0]} (JAX pin: "
+            f"{pinned.get(r['name'], (None,))[0]}), issues {[fp[:5] for fp in got[1]]}"
+            + ("" if r["complete"] else f"; {r['error']}"))
+    replayed, not_replayed = replay_all(results)
     owned = sum(bool(r.get("owned")) for r in results)
-    jax_owned = sum(bool(o) for o, _ in pinned.values())
-    log(f"[analyze] {len(rows)} vendored contracts x 32 lanes, 2 transactions, waves capped at "
-        f"{VENDORED_WAVES} a phase, budget {budget:.0f} s: {analyze_s:.3f} s to the "
-        f"results (prepass {spent['prepass']:.3f} s, synthesis {spent['synthesis']:.3f} s), "
-        f"rendering every form {render_s:.3f} s ({rendered} chars); wall to report "
-        f"{analyze_s + render_s:.3f} s, shares prepass "
-        f"{spent['prepass'] / (analyze_s + render_s):.4f}, synthesis "
-        f"{spent['synthesis'] / (analyze_s + render_s):.4f}, rendering "
-        f"{render_s / (analyze_s + render_s):.4f}; waves {stats.get('waves')}, owned {owned} of "
-        f"{len(rows)} (JAX pin {jax_owned}, {compared} compared), issues by SWC {dict(sorted(by_swc.items()))}, "
-        f"{replayed} witnesses replayed, not analyzed {len(errors)}, launches {launches} on "
-        f"{card}")
-    if mismatched or not compared or sorted(pinned) != sorted(r["name"] for r in results):
-        raise SystemExit(f"analyze: owned flags or fingerprints differ from the JAX pin "
-                         f"({compared} owned contracts compared): {mismatched}")
+    deferred = sum(e.ladder_deferred for e in explorers)
+    wall = analyze_s + render_s
+    log(f"[analyze b] default run ({len(rows)} vendored contracts x 32 lanes, 2 transactions, "
+        f"waves capped at {VENDORED_WAVES} a phase, budget {budget:.0f} s, ladder cap "
+        f"{args.sprint_cap_s} s): {analyze_s:.3f} s to the results (prepass "
+        f"{spent['prepass']:.3f} s, synthesis {spent['synthesis']:.3f} s), rendering every "
+        f"form {render_s:.3f} s ({rendered} chars); wall to report {wall:.3f} s, shares "
+        f"prepass {spent['prepass'] / wall:.4f}, synthesis {spent['synthesis'] / wall:.4f}, "
+        f"rendering {render_s / wall:.4f}; waves {stats.get('waves')}, owned {owned} of "
+        f"{len(rows)}, host_sat {stats.get('host_sat')}, ladder_deferred {deferred}, device "
+        f"sat {stats.get('device_sat')}, flip solve {stats.get('flip_solve_s')} s, issues by "
+        f"SWC {dict(sorted(by_swc.items()))}, {replayed} witnesses replayed, not analyzed "
+        f"{len(errors)}, {len(mismatched)} contracts unlike the JAX ladder pin, launches "
+        f"{launches} on {card}")
+    if mismatched or sorted(pinned) != sorted(r["name"] for r in results):
+        raise SystemExit(f"analyze (b): owned flags or fingerprints differ from the JAX "
+                         f"ladder pin: {mismatched}")
+    if not_replayed:
+        raise SystemExit(f"analyze (b): witnesses that do not replay to their pc: "
+                         f"{not_replayed}")
+    if not stats.get("host_sat"):
+        raise SystemExit("analyze (b): the ladder decided nothing (host_sat == 0)")
     for name in EXPLORE_KERNELS:
         if not launches[name]:
-            raise SystemExit(f"analyze: the vendored corpus never launched {name}")
+            raise SystemExit(f"analyze (b): the vendored corpus never launched {name}")
     if resilience.DegradationLog().marker():
-        raise SystemExit(f"analyze: the degradation log holds "
+        raise SystemExit(f"analyze (b): the degradation log holds "
                          f"{resilience.DegradationLog().events}")
-    return dict(launches=launches)
+    return dict(launches=launches, owned=owned, host_sat=stats.get("host_sat"),
+                ladder_deferred=deferred, wall=wall)
 
 
 def phase_bignum(card):
@@ -2523,6 +2911,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
+    if args[:1] == ["--vendored-ladder"]:
+        # phase_analyze's pinned ladder-on run, in a process of its own
+        vendored_ladder_run(args[1])
+        return 0
 
     if args[:1] == ["--portfolio-times"]:
         portfolio_times(args[2])
@@ -2553,6 +2945,9 @@ def main() -> int:
     if args == ["--analyze"]:
         phase_analyze(card)
         return 0
+    if args == ["--solver"]:
+        phase_solver(card, phase_sym_parity())
+        return 0
     main_path = phase_main_path(card)
     sync()
     phase_profile(card, main_path["wall"] / main_path["steps"] * 1e3)
@@ -2561,7 +2956,9 @@ def main() -> int:
     sync()
     sym_wave = phase_wave(card)
     sync()
-    phase_sym_parity()
+    flips = phase_sym_parity()
+    sync()
+    solver = phase_solver(card, flips)
     sync()
     flip = phase_flip(card, sym_wave["frontier"])
     sync()
@@ -2598,6 +2995,7 @@ def main() -> int:
         "launches_explore": explore["launches"][name],
         "launches_explore_pipelined": explore["piped_launches"][name],
         "launches_analyze": analyze["launches"][name],
+        "launches_solver": solver["launches"][name],
         **({"launches_many": main_path["launches"]["slot_write_many"],
             "launches_many_symbolic_wave": sym_wave["launches"]["slot_write_many"],
             "launches_many_explore": explore["launches"]["slot_write_many"],

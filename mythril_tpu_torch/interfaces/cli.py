@@ -76,6 +76,23 @@ def build_parser() -> argparse.ArgumentParser:
         "end (auto); never needs the host walk, which is not ported",
     )
     analyze.add_argument(
+        "--parallel-solving", action="store_true",
+        help="Enable solving solver queries in parallel (a query the CDCL "
+        "leaves unknown gets one portfolio search where the analysis runs)",
+    )
+    analyze.add_argument(
+        "--deterministic-solving", action="store_true",
+        help="Conflict-budget solver marathons so reports are reproducible "
+        "across machines and load (slightly less complete on hard queries "
+        "than pure wall budgets)",
+    )
+    analyze.add_argument(
+        "--sprint-cap-s", type=float, default=None, metavar="SECONDS",
+        help="Wall cap for the escalation ladder's host-CDCL pass over one "
+        "wave's flip survivors (default 5.0; 0 defers every survivor); "
+        "capped queries are recorded SPRINT_PREEMPTED and retried next wave",
+    )
+    analyze.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="run on the card (cuda, the default) or the plain PyTorch "
         "versions on the CPU",
@@ -170,6 +187,10 @@ def run_analyze(args) -> int:
         )
     device = resolve_device(None if args.device == "cuda" else args.device)
     flags.device_ownership = args.device_ownership
+    flags.parallel_solving = args.parallel_solving
+    flags.deterministic_solving = args.deterministic_solving
+    if args.sprint_cap_s is not None:
+        flags.sprint_cap_s = args.sprint_cap_s
     StartTime()
     contracts = [EVMContract(code=code, name=name) for name, code in codes]
     marker = resilience.DegradationLog().marker()
@@ -200,6 +221,10 @@ def run_analyze(args) -> int:
         print(render())
     for error in errors:
         print(error, file=sys.stderr)
+    # a degradation (a failed race launch among them) shows in every
+    # output form, not only in the json reports' `degradation` field
+    for reason, count in sorted(resilience.DegradationLog().counts_since(marker).items()):
+        print(f"degraded: {reason} x{count}", file=sys.stderr)
     return 1 if errors else 0
 
 

@@ -42,10 +42,11 @@ counter hash here, threefry there). What changes:
   consumed. It is off by default (`args.pipeline`): the wave's Python
   step loop holds the GIL, so the overlap is small and the schedule
   measured no faster than lock-step on the card;
-- the host escalation ladder behind the device funnel (host CDCL,
-  `support/model.py:get_model`) is not ported: the port's ladder is the
-  JAX one with a zero wall cap, so every device survivor is recorded
-  SPRINT_PREEMPTED, stays retriable and is counted (`ladder_deferred`);
+- the host escalation ladder behind the device funnel
+  (`_sprint_flips`: the host CDCL through `support/model.py:get_model`,
+  under `args.sprint_cap_s`) is the JAX one; the survivors its cap
+  defers are counted (`ladder_deferred`), and a zero cap defers them
+  all;
 - not ported, and refused rather than skipped: static pruning
   (`args.static_prune`, `analysis/static`), kernel specialization and
   blockjit (`specialize=True`), the multi-device mesh (`n_devices > 1`,
@@ -68,7 +69,11 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from mythril_tpu_torch.exceptions import DeviceDispatchError
+from mythril_tpu_torch.exceptions import (
+    DeviceDispatchError,
+    SolverTimeOutException,
+    UnsatError,
+)
 from mythril_tpu_torch.laser.batch.arena import ArenaView
 from mythril_tpu_torch.laser.batch.checkpoint import (
     WaveCheckpointWriter,
@@ -99,6 +104,7 @@ from mythril_tpu_torch.observe.querylog import (
 from mythril_tpu_torch.observe.spans import flight_recorder, trace
 from mythril_tpu_torch.support import resilience
 from mythril_tpu_torch.support.accel import resolve_device
+from mythril_tpu_torch.support.model import get_model
 
 log = logging.getLogger(__name__)
 
@@ -1039,10 +1045,10 @@ class DeviceCorpusExplorer:
         self._halt_reason = None
         #: per reseed: flip candidates, opaque targets, queries lowered,
         #: device-solve ms, verdicts by mode, witnesses, invalid
-        #: witnesses, survivors deferred by the absent host ladder
+        #: witnesses, survivors the host ladder's cap deferred
         self.reseed_log: List[Dict] = []
-        #: device survivors the absent host ladder deferred (retried
-        #: next wave), over the whole run
+        #: device survivors the host ladder's cap deferred (retried next
+        #: wave), over the whole run
         self.ladder_deferred = 0
         #: per harvested wave: serial, transaction, steps, active
         #: lane-steps, lanes, ms of seeding, run, readback, the host's
@@ -1176,51 +1182,91 @@ class DeviceCorpusExplorer:
         """Lower flip queries for the device stage (`lower_flips`)."""
         return lower_flips(batch, indices)
 
-    def _sprint_flips(self, batch, out, skip=frozenset()):
-        """The escalation ladder behind the device funnel, as the JAX
-        package's `_sprint_flips` runs it with a zero wall cap: the host
-        CDCL (`support/model.py:get_model`) is not ported, so no query
-        gets a host solve. Every query the device did not answer (not in
-        `skip`, no witness in `out`) is recorded SPRINT_PREEMPTED through
-        the flight recorder (`capture.capture_flip`, the cap in its
-        detail), counted in `ladder_deferred`, and returned capped — so
-        it stays retriable and the frontier is not taken for exhausted.
+    def _sprint_cap_s(self) -> float:
+        """The escalation ladder's wall cap for one wave's host-CDCL
+        pass (args.sprint_cap_s, CLI --sprint-cap-s)."""
+        from mythril_tpu_torch.support.support_args import args as _flags
 
-        Returns (capped, survivors) as the JAX ladder does: the index set
-        that never got a host attempt, and (the same) undecided ones; a
-        stop request caps the rest and returns no survivors."""
+        return max(0.0, float(_flags.sprint_cap_s))
+
+    def _sprint_flips(self, batch, out, skip=frozenset()):
+        """The escalation ladder behind the device funnel (the JAX
+        package's `_sprint_flips`): a host-CDCL pass over the device's
+        UNKNOWN survivors of a wave's flip batch (`skip` holds the
+        device-answered indices). Each query goes through `get_model`
+        at 2000 ms, on the explorer's device (where the
+        --parallel-solving escape searches); the pass as a whole is
+        capped at `_sprint_cap_s()`,
+        and every query past the cap is recorded SPRINT_PREEMPTED with
+        the actual cap (`capture.capture_flip`), counted in
+        `ladder_deferred` and retried next wave. A zero cap defers every
+        survivor (no host solve).
+
+        Writes assignments into `out` in place (`stats.host_sat` counts
+        them); returns (capped, survivors): the index set that never got
+        a REAL attempt (wall cap / stop request), and the capped and
+        attempted-but-undecided indices (solver timeouts)."""
         t0 = time.perf_counter()
         sprint_span = trace("flip.solve.host", queries=len(batch))
         sprint_span.__enter__()
         survivors: List[int] = []
         capped: set = set()
+        # the pass is time-capped as a whole: once hard queries have
+        # eaten this much wall, the rest are recorded preempted and
+        # retried next wave (they already had their batched device
+        # attempt this wave)
+        sprint_cap_s = self._sprint_cap_s()
         stopped = False
         with query_context(QUERY_ORIGIN_FLIP):
             for i, conditions in enumerate(batch):
                 if i in skip or out[i] is not None:
                     continue
+                # a stop request bounds post-stop work to the query in
+                # flight
                 if stopped or self._stop_requested():
                     stopped = True
                     capped.add(i)
                     continue
-                survivors.append(i)
-                capped.add(i)
-                self.ladder_deferred += 1
+                if sprint_cap_s <= 0.0 or time.perf_counter() - t0 > sprint_cap_s:
+                    survivors.append(i)
+                    capped.add(i)
+                    self.ladder_deferred += 1
+                    # the loss artifact names the cap that preempted
+                    # the query (the tuning knob for the ladder)
+                    try:
+                        lowered, _ = lower([c.raw for c in conditions])
+                        query_capture.capture_flip(
+                            lowered,
+                            verdict="unknown",
+                            wall_s=0.0,
+                            engine="host-cdcl",
+                            site="sprint_flips",
+                            loss_reason=LOSS_SPRINT_PREEMPTED,
+                            detail={"sprint_cap_s": sprint_cap_s},
+                        )
+                    except Exception:
+                        log.debug("sprint-cap capture failed", exc_info=True)
+                    continue
                 try:
-                    lowered, _ = lower([c.raw for c in conditions])
-                    query_capture.capture_flip(
-                        lowered,
-                        verdict="unknown",
-                        wall_s=0.0,
-                        engine="host-cdcl",
-                        site="sprint_flips",
-                        loss_reason=LOSS_SPRINT_PREEMPTED,
-                        detail={"sprint_cap_s": 0.0},
+                    model = get_model(
+                        tuple(conditions),
+                        enforce_execution_time=False,
+                        solver_timeout=2000,
+                        device=self.device,
                     )
-                except Exception:
-                    log.debug("sprint-cap capture failed", exc_info=True)
+                    self.stats.host_sat += 1
+                    out[i] = dict(model.assignment)
+                except UnsatError:
+                    pass
+                except SolverTimeOutException:
+                    survivors.append(i)
+                # any other exception (a failed host build, a race that
+                # cannot start) propagates: the JAX ladder's catch-all
+                # would hide it as a timeout
         sprint_span.__exit__(None, None, None)
         if stopped:
+            # post-stop, undecided queries get no further stage this
+            # wave; capped ones stay retriable
             survivors = []
         self.stats.flip_solve_s += time.perf_counter() - t0
         return capped, survivors

@@ -3,15 +3,13 @@ laser/smt (terms, concrete evaluation, the typed Bool/BitVec wrappers
 and the helpers the arena decode builds with). Nothing here imports
 jax or the JAX package; the term DAG and its simplifications are the
 same code, so a path condition decoded here has the structure of the
-one the JAX package decodes.
-
-Left out until something of the port needs them: `array.py`,
-`function.py`, `model.py` and the host solver stack re-exported by the
-JAX package's `laser/smt/solver` (only `preprocess` and `portfolio` are
-here).
+one the JAX package decodes. The surface is the JAX package's: arrays,
+uninterpreted functions, models, and the host solver stack
+(`Solver`, `Optimize`, `IndependenceSolver`).
 """
 
 from mythril_tpu_torch.laser.smt import terms
+from mythril_tpu_torch.laser.smt.array import Array, BaseArray, K
 from mythril_tpu_torch.laser.smt.bitvec import BitVec
 from mythril_tpu_torch.laser.smt.bitvec_helper import (
     BVAddNoOverflow,
@@ -36,6 +34,8 @@ from mythril_tpu_torch.laser.smt.bitvec_helper import (
 )
 from mythril_tpu_torch.laser.smt.bool import And, Bool, Implies, Not, Or, Xor, is_false, is_true
 from mythril_tpu_torch.laser.smt.expression import Expression, simplify
+from mythril_tpu_torch.laser.smt.function import Function
+from mythril_tpu_torch.laser.smt.model import Model
 
 
 class SymbolFactory:
@@ -64,7 +64,16 @@ class SymbolFactory:
 
 symbol_factory = SymbolFactory()
 
+from mythril_tpu_torch.laser.smt.solver import (  # noqa: E402  (needs symbol_factory)
+    IndependenceSolver,
+    Optimize,
+    Solver,
+)
+
 __all__ = [
+    "Array",
+    "BaseArray",
+    "K",
     "BitVec",
     "Bool",
     "And",
@@ -76,6 +85,11 @@ __all__ = [
     "is_true",
     "Expression",
     "simplify",
+    "Function",
+    "Model",
+    "Solver",
+    "Optimize",
+    "IndependenceSolver",
     "symbol_factory",
     "If",
     "UGT",

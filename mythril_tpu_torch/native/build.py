@@ -1,7 +1,7 @@
 """Build the port's CUDA sources into shared libraries, at first use,
 and launch their entries (`on_cuda` picks kernel or plain version by
 where a wrapper's operands lie, `launch` calls an entry on PyTorch's
-current stream).
+current stream); and build the host solver library.
 
 Each `csrc/<name>.cu` exposes a plain C entry point and is compiled by
 nvcc into `_build/lib<name>.so`, which is then loaded with ctypes; the
@@ -12,11 +12,23 @@ raises with nvcc's output.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
+
+The host solver's two C++ sources (native/host/cdcl.cpp, the CDCL SAT
+solver, and blast.cpp, the bit-blaster's circuits) are built by g++,
+never nvcc, into one library, so the solver runs wherever g++ does:
+
+    g++ -O3 -fPIC -shared -std=c++17 -o _build/libmythril_torch_host.so \
+        native/host/cdcl.cpp native/host/blast.cpp
+
+under a file lock (test workers build it once between them), written by
+an atomic rename and reused while its stamp matches the hash of the
+sources and flags (`build_host`, `load_host`). A failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -34,6 +46,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+
+HOST_SRC = PKG / "native" / "host"
+HOST_SOURCES = ("cdcl.cpp", "blast.cpp")
+HOST_STEM = "mythril_torch_host"
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
 _LOADED: dict = {}
 
@@ -143,3 +160,60 @@ def launch(fn, device: int, *args) -> None:
             rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")
+
+
+# ---------------------------------------------------------------------------
+# the host solver library (g++)
+# ---------------------------------------------------------------------------
+
+
+def gxx() -> str:
+    found = shutil.which(os.environ.get("CXX") or "g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host solver library cannot be built")
+    return found
+
+
+def _host_digest() -> str:
+    blob = b"".join(name.encode() + (HOST_SRC / name).read_bytes() for name in HOST_SOURCES)
+    return hashlib.sha256(blob + " ".join(GXX_FLAGS).encode()).hexdigest()
+
+
+def host_is_built() -> bool:
+    stamp = BUILD / f"lib{HOST_STEM}.sha256"
+    return (lib_path(HOST_STEM).exists() and stamp.exists()
+            and stamp.read_text() == _host_digest())
+
+
+def build_host() -> float:
+    """Build the host solver library if it is stale; the seconds g++
+    took (0.0 where the library was fresh). Several processes may call
+    this at once: one builds under the lock, the others wait and reuse
+    its library."""
+    if host_is_built():
+        return 0.0
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with open(BUILD / f"lib{HOST_STEM}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if host_is_built():
+            return 0.0
+        t0 = time.perf_counter()
+        tmp = BUILD / f"lib{HOST_STEM}.{os.getpid()}.tmp.so"
+        cmd = [gxx(), *GXX_FLAGS, "-o", str(tmp),
+               *(str(HOST_SRC / name) for name in HOST_SOURCES)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed on {', '.join(HOST_SOURCES)}:\n{proc.stdout}")
+        os.replace(tmp, lib_path(HOST_STEM))
+        (BUILD / f"lib{HOST_STEM}.sha256").write_text(_host_digest())
+        return time.perf_counter() - t0
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded host solver library (built first where stale)."""
+    lib = _LOADED.get(HOST_STEM)
+    if lib is None:
+        build_host()
+        lib = _LOADED[HOST_STEM] = ctypes.CDLL(str(lib_path(HOST_STEM)))
+    return lib

@@ -7,8 +7,10 @@ them), the thread-local query context (`query_context`, the origin
 labels), and capture (`configure_capture(dir)` arms it; each captured
 query's lowered constraint set serializes to `<dir>/q-<sha256>.json`
 in the JAX package's artifact schema, so its solverlab replays the
-port's captures). The registry counters of the loss waterfall are not
-ported.
+port's captures), and the loss waterfall (`record_loss`,
+`loss_reasons`): the JAX package counts it in its metrics registry
+(``mtpu_solver_loss_total``), the port in a plain in-process table
+until the registry is ported (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -38,10 +40,63 @@ LOSS_QUERY_TRIVIAL = "QUERY_TRIVIAL"
 LOSS_DEADLINE_EXPIRED = "DEADLINE_EXPIRED"
 LOSS_UNCLASSIFIED = "UNCLASSIFIED"
 
+LOSS_REASONS = (
+    LOSS_LOWERING_UNSUPPORTED,
+    LOSS_BUCKET_OVERFLOW,
+    LOSS_SLS_NONCONVERGED,
+    LOSS_RACE_LOST_TIMING,
+    LOSS_SPRINT_PREEMPTED,
+    LOSS_GATE_DISABLED,
+    LOSS_RACE_NOT_STARTED,
+    LOSS_WITNESS_INVALID,
+    LOSS_QUERY_TRIVIAL,
+    LOSS_DEADLINE_EXPIRED,
+    LOSS_UNCLASSIFIED,
+)
+
 #: the query-origin labels (where a query came FROM, as opposed to the
 #: solverstats origin of who ANSWERED it)
 QUERY_ORIGIN_FLIP = "flip-frontier"
 QUERY_ORIGIN_MEMO_MISS = "memo-miss"
+
+
+# ---------------------------------------------------------------------------
+# the loss waterfall: why the device did not answer a host verdict
+# ---------------------------------------------------------------------------
+
+_LOSS_MU = threading.Lock()
+#: (reason, verdict) -> host-answered verdicts
+_LOSS: Dict = {}
+
+
+def record_loss(reason: str, verdict: str, site: str = "") -> None:
+    """Count one host-answered verdict against the loss taxonomy (not
+    gated on the observe switch, as in the JAX package, so the sum of
+    the sat losses equals the CDCL's sat count)."""
+    key = (reason or LOSS_UNCLASSIFIED, verdict)
+    with _LOSS_MU:
+        _LOSS[key] = _LOSS.get(key, 0) + 1
+
+
+def loss_marker() -> Dict:
+    """A snapshot of the waterfall, for `loss_reasons(since=...)`."""
+    with _LOSS_MU:
+        return dict(_LOSS)
+
+
+def loss_reasons(
+    since: Optional[Dict] = None, verdict: Optional[str] = None
+) -> Dict[str, int]:
+    """The waterfall: {reason: count}, whole-process or as a delta
+    since a `loss_marker()`; `verdict="sat"` restricts to host-won
+    queries."""
+    base = since or {}
+    out: Dict[str, int] = {}
+    for (reason, v), n in loss_marker().items():
+        n -= base.get((reason, v), 0)
+        if n and (verdict is None or v == verdict):
+            out[reason] = out.get(reason, 0) + n
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -60,11 +115,17 @@ def current_origin() -> str:
 
 
 @contextmanager
-def query_context(origin: str):
-    """Tag queries issued inside the block with `origin`."""
+def query_context(origin: str, only_if_root: bool = False):
+    """Tag queries issued inside the block with `origin`. With
+    `only_if_root` the tag applies only when no enclosing context set
+    one (get_model's memo-miss default must not mask the flip tag of
+    its callers)."""
     stack = getattr(_CTX, "stack", None)
     if stack is None:
         stack = _CTX.stack = []
+    if only_if_root and stack:
+        yield
+        return
     stack.append(origin)
     try:
         yield

@@ -69,6 +69,10 @@ class DegradationReason:
     SOLVER_SESSION_REBUILT = "solver-session-rebuilt"
     DEVICE_DISPATCH_FAILED = "device-dispatch-failed"
     DEVICE_SPLIT_DISPATCH = "device-split-dispatch"
+    #: the device race of a `check_terms` query raised (a kernel build
+    #: or launch error, or any other exception) instead of finishing
+    #: with or without a witness; the CDCL decided the query
+    DEVICE_RACE_FAILED = "device-race-failed"
     #: a device fault surfaced at a wave's READBACK rather than its
     #: dispatch (the pipelined wave engine's worker thread): the
     #: record carries the faulted wave's serial so a fault on the

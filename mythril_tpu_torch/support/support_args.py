@@ -18,6 +18,22 @@ from mythril_tpu_torch.support.support_utils import Singleton
 
 class Args(object, metaclass=Singleton):
     def __init__(self):
+        # --parallel-solving: a query the CDCL leaves unknown gets one
+        # portfolio search where the analysis runs (one card: several
+        # are ROADMAP Queue 1 item 8)
+        self.parallel_solving = False
+        # Reproducible-report mode (CLI --deterministic-solving):
+        # marathon solves get a conflict budget derived from the query
+        # timeout instead of running to the wall, and the race is
+        # forgone, so verdicts are a pure function of the query whenever
+        # the wall valve doesn't fire.
+        self.deterministic_solving = False
+        # The escalation ladder's wall cap, in seconds, for the host-CDCL
+        # pass over one wave's device survivors. Queries past the cap are
+        # recorded SPRINT_PREEMPTED with the actual cap and retried next
+        # wave; 0 defers every survivor (no host solve).
+        # (CLI --sprint-cap-s.)
+        self.sprint_cap_s = 5.0
         # Static pre-analysis (analysis/static, CLI --no-static-prune):
         # not ported; True makes the explorer raise NotImplementedError.
         self.static_prune = False

@@ -51,10 +51,12 @@ runs it live on the milestone corpus. Regenerate the pin with
 
     PYTHONPATH=. python tests/test_torch_analyze.py --pin
 
-and the JAX side of chip_smoke.py's analyze phase (the 13 vendored
-contracts under the enumeration-only solver, chip_smoke.py VENDORED_PIN:
-tests/test_torch_analyze_vendored_pinned.json) with `--pin-vendored`
-(about 5 minutes).
+and the JAX side of chip_smoke.py's pinned analysis (the 13 vendored
+contracts under the enumeration-only solver with the host ladder at a
+cap that does not bind, under `deterministic_solving`, from a fresh
+solver session: chip_smoke.py VENDORED_LADDER_PIN,
+tests/test_torch_analyze_vendored_ladder_pinned.json) with
+`--pin-vendored-ladder` (about a minute).
 """
 
 import json
@@ -122,6 +124,17 @@ def enum_only_solver(pf, **kw):
     from test_torch_explore import enum_only_solver as make
 
     return make(pf, **kw)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def ladder_off():
+    """The port's host ladder off for the module, as the pins were made."""
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = args.sprint_cap_s
+    args.sprint_cap_s = 0.0
+    yield
+    args.sprint_cap_s = saved
 
 
 @pytest.fixture(scope="module")
@@ -437,6 +450,42 @@ def test_cli_exits_1_on_a_contract_it_does_not_own(tmp_path, capsys):
     assert "host walk" in doc["meta"]["logs"][0]["msg"]
 
 
+def test_ladder_escape_searches_where_the_analysis_runs(monkeypatch):
+    """analyze_corpus(device="cpu") with --parallel-solving and the host
+    ladder on, the CDCL leaving every query unknown: each flip query the
+    ladder takes goes to the escape, which searches on the CPU (the plain
+    portfolio), never on the card, and the analysis ends."""
+    from mythril_tpu_torch.laser.smt.solver import native_sat
+    from mythril_tpu_torch.laser.smt.solver import solver as port_solver
+    from mythril_tpu_torch.support import model as port_model
+    from mythril_tpu_torch.support.support_args import args
+
+    seen = []
+    real = port_portfolio.device_check
+
+    def recording(lowered, **kw):
+        seen.append(torch.device(kw["device"]).type)
+        return real(lowered, **kw)
+
+    monkeypatch.setattr(args, "sprint_cap_s", 120.0)
+    monkeypatch.setattr(args, "parallel_solving", True)
+    monkeypatch.setattr(native_sat.SolverSession, "solve",
+                        lambda self, *a, **kw: (native_sat.UNKNOWN, None))
+    monkeypatch.setattr(port_portfolio, "device_check", recording)
+    monkeypatch.setattr(port_portfolio, "device_solve_batch",
+                        enum_only_solver(port_portfolio, device="cpu"))
+    port_model.clear_cache()
+    try:
+        (result,) = port_corpus.analyze_corpus(
+            [(WRAP_AND_ORIGIN, "", "wrap_and_origin")], transaction_count=2,
+            execution_timeout=30, waves=WAVES, device_budget_s=NO_BUDGET, device="cpu")
+    finally:
+        port_model.clear_cache()
+        port_solver.reset_blast_session()
+    assert seen and set(seen) == {"cpu"}
+    assert result["name"] == "wrap_and_origin" and "device_prepass" in result
+
+
 def test_cli_refuses_creation_bytecode(capsys):
     from mythril_tpu_torch.interfaces import cli
 
@@ -505,27 +554,40 @@ def pin() -> None:
     print(f"wrote {PINNED}")
 
 
-def pin_vendored() -> None:
-    """The JAX side of chip_smoke.py's analyze phase: the 13 vendored
-    contracts through the device half of the JAX package's analyze_corpus
-    (corpus_device_prepass at the small-corpus geometry, capped at
-    VENDORED_WAVES waves a phase with no wall budget and the ladder off,
-    then `_outcome_owns` and `_owned_result`; the host walk of an unowned
-    contract is not run), written to chip_smoke.py's VENDORED_PIN. The JAX
-    side runs the enumeration-only solver: its SLS and cube fan at this
-    geometry had not finished after 40 minutes of the CPU, and on the
-    card the port's SLS leaves every query of this geometry unknown."""
+def pin_vendored_ladder() -> None:
+    """The JAX side of chip_smoke.py's pinned ladder-on analysis: the 13
+    vendored contracts through the device half of the JAX package's
+    analyze_corpus (corpus_device_prepass at the small-corpus geometry,
+    capped at VENDORED_WAVES waves a phase with no wall budget, then
+    `_outcome_owns` and `_owned_result`; the host walk of an unowned
+    contract is not run), with the explorer's host ladder at
+    VENDORED_LADDER_CAP_S (it does not bind), `deterministic_solving`
+    on, a fresh solver session and memo cache, and the enumeration-only
+    device solver (the JAX device SLS at this geometry had not finished
+    after 40 CPU minutes); written to chip_smoke.py's VENDORED_LADDER_PIN
+    with the run's host_sat."""
+    import time
+
     import conftest  # noqa: F401
-    from chip_smoke import VENDORED_PIN, VENDORED_WAVES
+    from chip_smoke import VENDORED_LADDER_CAP_S, VENDORED_LADDER_PIN, VENDORED_WAVES
     from mythril_tpu.analysis import corpus as jax_corpus
     from mythril_tpu.laser.smt.solver import portfolio as jax_portfolio
+    from mythril_tpu.laser.smt.solver import solver as jax_solver
+    from mythril_tpu.support import model as jax_model
+    from mythril_tpu.support.support_args import args as jax_args
     from mythril_tpu_torch.laser import symbolic_wave
     from test_torch_explore import _jax_setup
 
     paths = sorted(symbolic_wave.CONTRACTS.glob("*.sol.o"))
     rows = [(p.read_text().strip(), "", p.name) for p in paths]
+    t0 = time.perf_counter()
     with pytest.MonkeyPatch.context() as mp:
         jax_explore = _jax_setup(mp.setattr)
+        mp.setattr(jax_explore.DeviceCorpusExplorer, "_sprint_cap_s",
+                   lambda self: VENDORED_LADDER_CAP_S)
+        mp.setattr(jax_args, "deterministic_solving", True)
+        jax_solver.reset_blast_session()
+        jax_model.clear_cache()
         base = jax_explore.DeviceCorpusExplorer
 
         class Capped(base):
@@ -537,6 +599,7 @@ def pin_vendored() -> None:
         outcomes = jax_corpus.corpus_device_prepass(
             rows, address=ADDR, transaction_count=2, execution_timeout=86400,
             ownership=True)
+    wall = time.perf_counter() - t0
     contracts = []
     for i, (code, _, name) in enumerate(rows):
         owned = jax_corpus._outcome_owns(outcomes.get(i))
@@ -546,19 +609,25 @@ def pin_vendored() -> None:
             fps = sorted(fingerprint(issue) for issue in res["issues"])
         contracts.append([name, owned, fps])
         print(name, owned, [fp[:2] for fp in fps])
+    stats = next((o.get("device_prepass") or o.get("stats") for o in outcomes.values()
+                  if isinstance(o, dict) and (o.get("device_prepass") or o.get("stats"))), {})
     doc = {"settings": {"waves": VENDORED_WAVES, "lanes_per_contract": 32,
-                        "transaction_count": 2, "ladder": "off", "budget_s": None,
+                        "transaction_count": 2, "ladder": "on",
+                        "sprint_cap_s": VENDORED_LADDER_CAP_S,
+                        "deterministic_solving": True, "budget_s": None,
                         "solver": "enumeration only"},
+           "host_sat": stats.get("host_sat"),
            "contracts": contracts}
-    VENDORED_PIN.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
-    print(f"wrote {VENDORED_PIN}")
+    VENDORED_LADDER_PIN.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
+    print(f"wrote {VENDORED_LADDER_PIN} ({wall:.1f} s of prepass, host_sat "
+          f"{doc['host_sat']})")
 
 
 if __name__ == "__main__":
     sys.path[:0] = [str(Path(__file__).parent), str(ROOT)]
-    modes = {"--pin": pin, "--pin-vendored": pin_vendored}
+    modes = {"--pin": pin, "--pin-vendored-ladder": pin_vendored_ladder}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         modes[sys.argv[1]]()
     else:
         sys.exit("usage: PYTHONPATH=. python tests/test_torch_analyze.py "
-                 "--pin | --pin-vendored")
+                 "--pin | --pin-vendored-ladder")

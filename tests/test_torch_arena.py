@@ -23,6 +23,13 @@ The JAX decode's digests are pinned in
 `mythril_tpu_torch/laser/flip_frontier_pinned.json`, which chip_smoke.py
 holds the card's decode to.
 
+The host ladder: that frontier's four flip queries go through the port
+explorer's escalation ladder (`_sprint_flips`: `get_model` on the host
+CDCL) and must get the JAX ladder's verdicts (`python
+tests/test_torch_explore.py --ladder-check`): sat at (445, False) and
+(461, False) in exceptions.sol.o, whose witnesses pass
+`validate_witness`, and unsat for the other two.
+
 Regenerate both pinned files from the JAX package with
 
     PYTHONPATH=. python tests/test_torch_arena.py --pin
@@ -183,6 +190,39 @@ def test_frontier_decode_matches_pinned_file(frontiers):
     pinned = ff.load_pinned()
     assert pinned["settings"] == SETTINGS
     assert {k: v for k, v in pinned.items() if k != "settings"} == frontiers[0]
+
+
+#: the JAX ladder's verdicts on generation 0's frontier (--ladder-check)
+LADDER_SAT = {("exceptions.sol.o", (445, False)), ("exceptions.sol.o", (461, False))}
+
+
+def test_ladder_decides_the_frontier_as_the_jax_ladder(views, port_run, monkeypatch):
+    from mythril_tpu_torch.laser.batch import explore
+    from mythril_tpu_torch.laser.smt.solver import portfolio
+    from mythril_tpu_torch.laser.smt.solver.preprocess import lower
+    from mythril_tpu_torch.support.support_args import args
+
+    monkeypatch.setattr(args, "sprint_cap_s", 120.0)
+    port_view = views[0]
+    by = ff.lanes_by_contract(port_run[0].base.code_id.numpy())
+    tracks = {}
+    ff.harvest(port_view, tracks, by)
+    cands, _tried, _opaque = ff.collect_candidates(port_view, tracks, by)
+    assert len(cands) == 4
+    ex = explore.DeviceCorpusExplorer(["00"], lanes_per_contract=1, pipeline=False,
+                                      device="cpu")
+    solved = [None] * len(cands)
+    capped, survivors = ex._sprint_flips([c[2] for c in cands], solved)
+    assert (capped, survivors, ex.ladder_deferred) == (set(), [], 0)
+    names = [p.name for p in sorted(wave.CONTRACTS.glob("*.sol.o"))]
+    sat = set()
+    for (lane, _k, conditions, target), assignment in zip(cands, solved):
+        if assignment is None:
+            continue
+        sat.add((names[int(port_run[0].base.code_id[lane])], tuple(target)))
+        prog = portfolio.compile_program(lower([c.raw for c in conditions])[0])
+        assert portfolio.validate_witness(prog, assignment), (lane, target)
+    assert sat == LADDER_SAT and ex.stats.host_sat == 2
 
 
 def _pin_frontier(out):

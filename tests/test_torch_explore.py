@@ -19,15 +19,23 @@ versions of the kernels) beside the JAX explorer on the same inputs:
   stats counter but the times (`explore.wave_snapshot`) must be equal;
 - `outcome()` and `ExploreStats.as_dict()` have the JAX package's keys.
 
-Both sides run with static pruning off and the device-first funnel; the
-JAX explorer's host escalation ladder is switched off (its
-`_sprint_cap_s` returns -1.0, so every device survivor is deferred, as
-the port's absent ladder does). The JAX side takes about a minute here
-(a compile per shape), so its results are pinned in
-`tests/test_torch_explore_pinned.json`; one test runs the JAX explorer
-live and holds it to the pin. Regenerate the pin with
+Both sides run with static pruning off and the device-first funnel. In
+the tests above the host escalation ladder is off on both sides: the
+port's `args.sprint_cap_s` is 0 for the whole module and the JAX
+explorer's `_sprint_cap_s` returns -1.0, so every device survivor is
+deferred. The JAX side takes about a minute here (a compile per shape),
+so its results are pinned in `tests/test_torch_explore_pinned.json`;
+one test runs the JAX explorer live and holds it to the pin. Regenerate
+the pin with
 
     PYTHONPATH=. python tests/test_torch_explore.py --pin
+
+With the ladder ON (the port's default; a cap of LADDER_CAP_S seconds
+that never binds here) and both packages' enumeration-only solver under
+`deterministic_solving`, every scenario's fingerprints and `host_sat`
+(the ladder's sat verdicts) must equal the JAX explorer's, pinned in
+`tests/test_torch_explore_ladder_pinned.json` by `--pin-ladder`; both
+packages' solver sessions and memo caches start fresh for every run.
 
 compare the two explorers at the full small-corpus prepass geometry
 (13 contracts x 32 lanes, both schedules, enumeration only; a few
@@ -51,6 +59,9 @@ from mythril_tpu_torch.laser.smt.solver import portfolio as port_portfolio
 torch.set_num_threads(1)
 
 PINNED = Path(__file__).with_name("test_torch_explore_pinned.json")
+LADDER_PINNED = Path(__file__).with_name("test_torch_explore_ladder_pinned.json")
+#: the ladder's wall cap in the ladder-on runs (never reached)
+LADDER_CAP_S = 120.0
 
 WRITER = "6001600055600060015500"
 BRANCHER = "600035600757005b600160005500"
@@ -122,6 +133,19 @@ def port_run(name, pipeline, trace=False, **over):
     if trace:
         return (ex,) + traced_run(ex)
     return ex, ex.run(), None
+
+
+@pytest.fixture(scope="module", autouse=True)
+def ladder_off():
+    """The port's host ladder off for the module (a zero cap defers
+    every device survivor), as the ladder-off pins were made; the
+    ladder-on tests switch it on themselves."""
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = args.sprint_cap_s
+    args.sprint_cap_s = 0.0
+    yield
+    args.sprint_cap_s = saved
 
 
 @pytest.fixture(scope="module")
@@ -297,9 +321,9 @@ def test_unported_options_raise():
 
 
 def test_absent_ladder_defers_and_keeps_retrying():
-    """A query the device leaves unknown is deferred by the absent
-    ladder (counted, recorded SPRINT_PREEMPTED) and stays retriable: it
-    is collected again the next wave rather than blacklisted."""
+    """With a zero cap, a query the device leaves unknown is deferred by
+    the ladder (counted, recorded SPRINT_PREEMPTED) and stays retriable:
+    it is collected again the next wave rather than blacklisted."""
     saved = port_portfolio.device_solve_batch
     port_portfolio.device_solve_batch = enum_only_solver(port_portfolio, device="cpu")
     try:
@@ -317,7 +341,7 @@ def test_absent_ladder_defers_and_keeps_retrying():
 
 
 def test_deferred_queries_are_captured_for_the_jax_replay_lab(tmp_path):
-    """With capture armed, a query the absent ladder defers lands in
+    """With capture armed, a query the zero-cap ladder defers lands in
     the corpus as a flip-frontier artifact whose last loss is
     SPRINT_PREEMPTED, and the JAX package's corpus loader reads it."""
     from mythril_tpu.observe import querylog as jax_querylog
@@ -388,6 +412,109 @@ def test_live_jax_enumeration_trace_matches_the_pin(pinned, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the ladder on
+# ---------------------------------------------------------------------------
+
+
+def ladder_on(setattr_, args, solver_mod, model_mod):
+    """One package's ladder-on settings: the cap that never binds,
+    reproducible solving, a fresh solver session and memo cache."""
+    setattr_(args, "sprint_cap_s", LADDER_CAP_S)
+    setattr_(args, "deterministic_solving", True)
+    solver_mod.reset_blast_session()
+    model_mod.clear_cache()
+
+
+def port_ladder_run(name, sched, monkeypatch):
+    from mythril_tpu_torch.laser.smt.solver import solver as port_solver
+    from mythril_tpu_torch.support import model as port_model
+    from mythril_tpu_torch.support.support_args import args
+
+    ladder_on(monkeypatch.setattr, args, port_solver, port_model)
+    monkeypatch.setattr(port_portfolio, "device_solve_batch",
+                        enum_only_solver(port_portfolio, device="cpu"))
+    ex, res, _ = port_run(name, SCHEDULES[sched])
+    return ex, res
+
+
+@pytest.mark.parametrize("sched", SCHEDULES)
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_ladder_on_equals_the_jax_explorer(name, sched, monkeypatch):
+    ladder = json.loads(LADDER_PINNED.read_text())
+    ex, res = port_ladder_run(name, sched, monkeypatch)
+    key = f"{name}/{sched}"
+    assert [fingerprint(c) for c in res["contracts"]] == ladder["fingerprints"][key]
+    assert res["stats"]["host_sat"] == ladder["host_sat"][key]
+    assert ex.ladder_deferred == 0
+    assert sum(r["witness_invalid"] for r in ex.reseed_log) == 0
+
+
+def test_ladder_decides_what_the_zero_cap_defers(monkeypatch):
+    """GATED under the enumeration-only solver: its flip query is wider
+    than enumeration reaches, so with the ladder off it is deferred
+    every wave and the frontier stays open; with the ladder on the host
+    CDCL decides it, both directions are covered and the frontier
+    closes."""
+    kw = dict(lanes_per_contract=4, waves=3, steps_per_wave=64, pipeline=False, seed=5,
+              device="cpu")
+    monkeypatch.setattr(port_portfolio, "device_solve_batch",
+                        enum_only_solver(port_portfolio, device="cpu"))
+    off = port_explore.DeviceCorpusExplorer([GATED], **kw)
+    off_out = off.run()
+    from mythril_tpu_torch.laser.smt.solver import solver as port_solver
+    from mythril_tpu_torch.support import model as port_model
+    from mythril_tpu_torch.support.support_args import args
+
+    ladder_on(monkeypatch.setattr, args, port_solver, port_model)
+    ex = port_explore.DeviceCorpusExplorer([GATED], **kw)
+    on_out = ex.run()
+    assert off_out["stats"]["host_sat"] == 0 and off.ladder_deferred >= 1
+    assert on_out["stats"]["host_sat"] >= 1 and ex.ladder_deferred == 0
+    assert {(11, True), (11, False)} <= {tuple(b) for b in on_out["contracts"][0]["covered_branches"]}
+    assert on_out["contracts"][0]["completeness_gates"]["frontier_closed"]
+    assert not off_out["contracts"][0]["completeness_gates"]["frontier_closed"]
+
+
+def test_capped_ladder_defers_with_the_real_cap(tmp_path, monkeypatch):
+    """A cap the pass exceeds: the queries past it are recorded
+    SPRINT_PREEMPTED with that cap, counted in ladder_deferred and
+    returned capped (retriable); the ones before it were decided, and
+    check_terms captured them."""
+    from mythril_tpu_torch.laser.smt import symbol_factory
+    from mythril_tpu_torch.observe import querylog
+    from mythril_tpu_torch.support.support_args import args
+
+    monkeypatch.setattr(args, "sprint_cap_s", 0.05)
+    ex = port_explore.DeviceCorpusExplorer(["00"], lanes_per_contract=1, pipeline=False,
+                                           device="cpu")
+    real = port_explore.get_model
+
+    def slow(*a, **kw):
+        import time
+
+        time.sleep(0.03)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(port_explore, "get_model", slow)
+    xs = [symbol_factory.BitVecSym(f"capq{i}", 256) for i in range(4)]
+    batch = [[x * 3 == 9 + 3 * i] for i, x in enumerate(xs)]
+    out = [None] * 4
+    querylog.configure_capture(str(tmp_path))
+    try:
+        capped, survivors = ex._sprint_flips(batch, out)
+    finally:
+        querylog.configure_capture(None)
+    assert capped == {2, 3} and survivors == [2, 3] and ex.ladder_deferred == 2
+    assert [o is not None for o in out] == [True, True, False, False]
+    assert ex.stats.host_sat == 2
+    observations = [o for p in sorted(tmp_path.glob("q-*.json"))
+                    for o in json.loads(p.read_text())["observations"]]
+    assert sorted(o["site"] for o in observations) == ["check_terms"] * 2 + ["sprint_flips"] * 2
+    assert [(o["loss_reason"], o["detail"]) for o in observations
+            if o["site"] == "sprint_flips"] == [("SPRINT_PREEMPTED", {"sprint_cap_s": 0.05})] * 2
+
+
+# ---------------------------------------------------------------------------
 # the JAX side (live in one test; the rest from the pin)
 # ---------------------------------------------------------------------------
 
@@ -435,6 +562,36 @@ def pin() -> None:
     print(f"wrote {PINNED}")
 
 
+def pin_ladder() -> None:
+    """The JAX explorer's fingerprints and host_sat on every scenario and
+    schedule with the ladder on (LADDER_CAP_S, deterministic_solving)
+    and its enumeration-only solver, each run from a fresh solver
+    session and memo cache, into LADDER_PINNED."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from mythril_tpu.laser.smt.solver import portfolio as jax_portfolio
+    from mythril_tpu.laser.smt.solver import solver as jax_solver
+    from mythril_tpu.support import model as jax_model
+    from mythril_tpu.support.support_args import args as jax_args
+
+    jax_explore = _jax_setup(setattr)
+    jax_explore.DeviceCorpusExplorer._sprint_cap_s = lambda self: LADDER_CAP_S
+    jax_explore.device_solve_batch = enum_only_solver(jax_portfolio)
+    doc = {"settings": {"sprint_cap_s": LADDER_CAP_S, "deterministic_solving": True,
+                        "solver": "enumeration only"},
+           "fingerprints": {}, "host_sat": {}}
+    for name, (codes, kw) in SCENARIOS.items():
+        for sched, pipe in SCHEDULES.items():
+            ladder_on(setattr, jax_args, jax_solver, jax_model)
+            res = jax_explore.DeviceCorpusExplorer(codes, pipeline=pipe, **kw).run()
+            doc["fingerprints"][f"{name}/{sched}"] = [fingerprint(c) for c in res["contracts"]]
+            doc["host_sat"][f"{name}/{sched}"] = res["stats"]["host_sat"]
+            print(name, sched, "host_sat", res["stats"]["host_sat"])
+    LADDER_PINNED.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
+    print(f"wrote {LADDER_PINNED}")
+
+
 def full_width() -> None:
     """Both explorers at the JAX small-corpus prepass geometry (the 13
     vendored contracts x 32 lanes, mem_cap 16384, storage_cap 128, 512
@@ -475,8 +632,7 @@ def full_width() -> None:
 
 
 def ladder_check() -> None:
-    """What the port's absent host ladder defers: generation 0's pinned
-    flip frontier (the JAX wave of `test_torch_arena.jax_wave`, its
+    """Generation 0's pinned flip frontier (the JAX wave of `test_torch_arena.jax_wave`, its
     decode held to `flip_frontier_pinned.json`) through the JAX
     explorer's host ladder (`_sprint_flips`: `get_model` at 2000 ms a
     query, under a cap that lets each query run), printing each
@@ -521,9 +677,10 @@ def ladder_check() -> None:
 
 
 if __name__ == "__main__":
-    modes = {"--pin": pin, "--full-width": full_width, "--ladder-check": ladder_check}
+    modes = {"--pin": pin, "--pin-ladder": pin_ladder, "--full-width": full_width,
+             "--ladder-check": ladder_check}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         modes[sys.argv[1]]()
     else:
         sys.exit("usage: PYTHONPATH=. python tests/test_torch_explore.py "
-                 "--pin | --full-width | --ladder-check")
+                 "--pin | --pin-ladder | --full-width | --ladder-check")

@@ -38,6 +38,18 @@ BRANCHER = "600035600757005b600160005500"
 GATED = "60003560f81c604214600d57005b600160005500"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def ladder_off():
+    """The port's host ladder off (a zero cap): the device-solve tests
+    count the funnel's retries of a query the ladder leaves open."""
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = args.sprint_cap_s
+    args.sprint_cap_s = 0.0
+    yield
+    args.sprint_cap_s = saved
+
+
 @pytest.fixture(autouse=True)
 def _clean_supervisor():
     resilience.disarm_faults()
@@ -165,8 +177,8 @@ def test_explorer_deadline_stops_at_wave_boundary():
 
 # -- the device-solve breaker ----------------------------------------------------
 def test_device_solve_faults_trip_the_breaker_and_later_waves_skip_the_stage(monkeypatch):
-    """GATED's flip query comes back every wave (the absent ladder keeps
-    it retriable). Two faulting solves trip the breaker open; the two
+    """GATED's flip query comes back every wave (the zero-cap ladder
+    keeps it retriable). Two faulting solves trip the breaker open; the two
     later reseeds route around the device stage; each fault is one
     degradation record, and the run ends with its coverage."""
     from mythril_tpu_torch.laser.smt.solver import portfolio

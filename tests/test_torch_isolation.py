@@ -8,9 +8,12 @@ layer, `compile_program`, enumeration through `portfolio_eval`) and a
 two-contract `DeviceCorpusExplorer` run (laser/batch/explore.py, with
 its resilience, checkpoint, span and capture modules), a one-contract
 `analyze_corpus` with its issue synthesis, replay and report in every
-form (analysis/, with the command line's `build_report`), and checks
-that `jax` never entered `sys.modules` and that no module of the JAX
-package did either. A source scan finds no import of either in the
+form (analysis/, with the command line's `build_report`), and a query
+through the host solver stack (`get_model`: the bit-blaster and the
+CDCL of the port's own g++ library), and checks that `jax` never
+entered `sys.modules`, that no module of the JAX package did either,
+and that no shared object under `mythril_tpu/` is mapped into the
+process (/proc/self/maps). A source scan finds no import of either in the
 port's files or in chip_smoke.py. Without a CUDA device, an entry point
 called with no device raises instead of carrying on on the CPU.
 """
@@ -80,6 +83,17 @@ report, errors = cli.build_report([EVMContract(code="604260003560f81c14600d57005
 assert not errors and all(f() for f in (report.as_text, report.as_markdown,
                                         report.as_json, report.as_swc_standard_format))
 assert SignatureDB().get("0xa9059cbb") == ["transfer(address,uint256)"]
+import os
+from mythril_tpu_torch.laser.smt import ULT, symbol_factory
+from mythril_tpu_torch.support.model import get_model
+q = symbol_factory.BitVecSym("iso_q", 256)
+m = get_model((q * 3 == 9, ULT(q, 10)), enforce_execution_time=False)
+assert m.eval_int(q) == 3, m.assignment
+paths = {line.split()[-1] for line in open("/proc/self/maps") if line.count("/")}
+jax_dir = os.path.realpath("mythril_tpu") + os.sep
+port_lib = os.path.realpath("mythril_tpu_torch/_build/libmythril_torch_host.so")
+assert port_lib in paths, sorted(p for p in paths if p.endswith(".so"))
+print("MAPPED", sorted(p for p in paths if p.startswith(jax_dir)))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "mythril_tpu" or m.startswith("mythril_tpu."))
@@ -100,6 +114,7 @@ def test_port_runs_without_jax_or_the_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+    assert "MAPPED []" in proc.stdout, proc.stdout
 
 
 def _sources():
@@ -134,7 +149,7 @@ def test_entry_points_without_device_raise_where_no_cuda():
     from mythril_tpu_torch.analysis import corpus, replay
     from mythril_tpu_torch.interfaces import cli
     from mythril_tpu_torch.laser.smt import terms as T
-    from mythril_tpu_torch.laser.smt.solver import portfolio
+    from mythril_tpu_torch.laser.smt.solver import device_race, portfolio
     from mythril_tpu_torch.ops.keccak import keccak256
 
     wave_np = interop.symbatch_to_numpy(symbolic_wave.make_wave(1, 2, device="cpu")[0])
@@ -148,6 +163,7 @@ def test_entry_points_without_device_raise_where_no_cuda():
                  lambda: portfolio.device_solve_batch([query]),
                  lambda: portfolio.device_enumerate(prog),
                  lambda: portfolio.device_check(query),
+                 lambda: device_race.DeviceRace(query),
                  lambda: portfolio.debug_eval(prog, {}),
                  lambda: portfolio.rank_impact_vars(prog),
                  lambda: flip_frontier.run_generations(1, 2, 1),
