@@ -1,5 +1,5 @@
-"""mythril_tpu_torch: the batched EVM interpreter ported to PyTorch and
-CUDA for an NVIDIA H100.
+"""mythril_tpu_torch: the analyzer ported to PyTorch and CUDA for an
+NVIDIA H100.
 
 A package beside the JAX one, imported without it: it imports torch and
 never jax. Entry points build their tensors on the card unless the
@@ -8,7 +8,8 @@ caller passes `device="cpu"`:
 - `laser.batch.make_batch` / `make_code_table` / `run`;
 - `laser.batch.symbolic.sym_run` / `reseed_wave` over
   `laser.symbolic_wave.make_wave`, read back by `laser.batch.arena.ArenaView`;
-- `laser.conformance.run_cases` (VMTests replay);
+- `laser.conformance.run_cases` (VMTests replay, hybrid: a lane the
+  device cannot finish continues on the host engine);
 - `laser.flip_frontier.solve_frontier` / `next_wave` /
   `run_generations` (a wave's flip frontier decoded, lowered and solved
   by `laser.smt.solver.portfolio.device_solve_batch`, its witnesses
@@ -16,6 +17,11 @@ caller passes `device="cpu"`:
 - `laser.batch.explore.DeviceCorpusExplorer` / `DeviceSymbolicExplorer`
   (the device explorer: waves, flips, carries across attacker
   transactions, per-contract outcomes) and `replay_wave`;
+- `analysis.corpus.analyze_corpus` and `python -m mythril_tpu_torch
+  analyze` (the device prepass, the ownership gate, and the host walk,
+  `analysis.symbolic.SymExecWrapper` + `analysis.security.fire_lasers`,
+  of every contract the device does not own, its solver queries racing
+  the card);
 - `ops.keccak.keccak256`.
 
 The hand-written kernels, built with nvcc at first use, are keccak-f[1600]

@@ -1,32 +1,36 @@
-"""Corpus analysis on the card: the device half of the JAX package's
-analysis/corpus.py.
+"""Corpus analysis on the card: the port's copy of the JAX package's
+analysis/corpus.py, single-process.
 
 One lane-striped device exploration (laser/batch/explore.py
 `DeviceCorpusExplorer`) runs over the whole corpus; every contract whose
 exploration the ownership gate accepts (`_outcome_owns`: frontier
 closed, no degraded lanes, no dropped carries) is OWNED, and its issues
 are synthesized from the banked concrete evidence (analysis/prepass.py,
-analysis/evidence.py) with no host walk.
+analysis/evidence.py) with no host walk. Every other contract, and every
+contract under `--device-ownership never`, goes through the host walk
+(`_analyze_one`: SymExecWrapper + fire_lasers) with its prepass outcome
+injected, after the exploration has finished, so that the walk's solver
+races have the card to themselves.
 
-What the port leaves out, and how it says so:
+Where the port differs, and how it says so:
 
-- the host walk (`_analyze_one`: SymExecWrapper + fire_lasers) is not
-  ported. A contract the device does not own gets an explicit result,
-  `complete: False`, `owned: False`, with an `error` naming the missing
-  walk, never an empty issue list that reads as clean; and
-  `--device-ownership never`, which asks for the walk alone, raises;
 - a prepass failure raises (the JAX package returns no outcomes so that
-  its host walk carries on; here that would print an empty report);
+  its host walk carries on without the card);
+- a walk that raises is recorded in the result's `error`, and the
+  contract is `complete: False`, as in the JAX package;
 - the multi-chip scheduler (`mesh_groups > 1`) raises, as the explorer's
   other unported options do;
-- the verdict store (and with it the selector masks), the static and
-  routing triage, and the overlapped prepass (which exists only to
-  overlap the host walk) are not ported.
+- the pooled walk (`processes > 1`) raises; the overlapped prepass (the
+  walk beside the exploration), the verdict store (and with it the
+  selector masks), and the static and routing triage are not ported and
+  have no switch here.
 """
 
 from __future__ import annotations
 
 import logging
+import time
+import traceback
 from typing import Dict, List, Optional, Tuple
 
 log = logging.getLogger(__name__)
@@ -45,30 +49,24 @@ PREPASS_WAVES = 48
 
 DEFAULT_ADDRESS = 0x901D573B8CE8C997DE5F19173C32D966B4FA55FE
 
-#: why a contract the device did not own has no issue list
-HOST_WALK_MISSING = (
-    "not analyzed: the device exploration did not own this contract, and "
-    "the host walk (SymExecWrapper + fire_lasers) that would analyze it "
-    "is not ported"
-)
-
-
 def resolve_prepass_budget_s(
-    n_contracts: int, execution_timeout: Optional[float] = None
+    n_contracts: int,
+    execution_timeout: Optional[float] = None,
+    ownership: bool = True,
 ) -> float:
     """Default ACTIVE-time budget (waves + flip solving) for the striped
-    corpus prepass under ownership.
+    corpus prepass.
 
-    Every contract the exploration completes refunds its whole host walk
-    (up to execution_timeout each), so the budget scales with the walk
-    ceiling: up to half the refundable wall, bounded per corpus size.
-    Early exits (per-contract parking, frontier exhaustion, coverage
-    plateau) stop the spend well short of the budget on corpora that
-    converge. With no walk ceiling the JAX package's witness-injection
-    curve stands: small corpora 1s/contract, large corpora 0.5s/contract
-    capped at 120s."""
+    With `ownership`, every contract the exploration completes refunds
+    its whole host walk (up to execution_timeout each), so the budget
+    scales with the walk ceiling: up to half the refundable wall,
+    bounded per corpus size. Early exits (per-contract parking, frontier
+    exhaustion, coverage plateau) stop the spend well short of the
+    budget on corpora that converge. Without ownership, or with no walk
+    ceiling, the JAX package's witness-injection curve stands: small
+    corpora 1s/contract, large corpora 0.5s/contract capped at 120s."""
     n = max(1, n_contracts)
-    if execution_timeout:
+    if ownership and execution_timeout:
         return min(0.5 * execution_timeout * n, 30.0 + 5.0 * n, 300.0)
     if n >= OVERLAP_MIN_CORPUS:
         return min(120.0, max(30.0, 0.5 * n))
@@ -100,6 +98,7 @@ def corpus_device_prepass(
     mesh_groups: Optional[int] = None,
     waves: int = PREPASS_WAVES,
     device=None,
+    ownership: bool = True,
 ) -> Dict[int, Dict]:
     """One striped device exploration over the corpus, on `device`
     (None: the card); returns {contract_index: single-contract prepass
@@ -130,7 +129,9 @@ def corpus_device_prepass(
     if not runnable:
         return {}
     if budget_s is None:
-        budget_s = resolve_prepass_budget_s(len(runnable), execution_timeout)
+        budget_s = resolve_prepass_budget_s(
+            len(runnable), execution_timeout, ownership=ownership
+        )
     mem_cap, storage_cap = (
         LEAN_CAPS if len(runnable) >= OVERLAP_MIN_CORPUS else ROOMY_CAPS
     )
@@ -202,21 +203,6 @@ def _outcome_owns(outcome: Optional[Dict]) -> bool:
     )
 
 
-def _maybe_ownable(outcome: Optional[Dict]) -> bool:
-    """Could a still-running prepass still hand this contract over?
-    False the moment an outcome shows a hard ownership failure (degraded
-    lanes, dropped carries, saturated event bank): those gates only ever
-    get worse."""
-    if outcome is None:
-        return True  # no information yet
-    gates = outcome.get("completeness_gates") or {}
-    return (
-        gates.get("no_degraded", True)
-        and gates.get("no_carry_overflow", True)
-        and gates.get("no_event_overflow", True)
-    )
-
-
 def _owned_result(code, creation_code, name, outcome, address) -> Dict:
     """The analysis result for a device-owned contract: issues are
     synthesized from the banked concrete evidence (witness issues +
@@ -239,36 +225,6 @@ def _owned_result(code, creation_code, name, outcome, address) -> Dict:
         "device_prepass": stats,
         "owned": True,
         "error": None,
-    }
-
-
-def _unowned_result(name: str, outcome: Optional[Dict]) -> Dict:
-    """The result for a contract the device did not own: explicitly
-    incomplete, with the gates that failed, because the host walk that
-    would analyze it is not ported."""
-    if outcome is None:
-        why = "no device outcome: runtime code shorter than 4 bytes"
-    else:
-        gates = outcome.get("completeness_gates") or {}
-        failed = ", ".join(sorted(k for k, ok in gates.items() if not ok))
-        # a hard failure (degraded lanes, dropped carries or events) no
-        # longer exploration can repair; a soft one (the frontier still
-        # open) more waves or budget might
-        why = "%s gate failure: %s" % (
-            "soft" if _maybe_ownable(outcome) else "hard",
-            failed or "none (partial run)",
-        )
-    return {
-        "name": name,
-        "issues": [],
-        "issue_objects": [],
-        "device_prepass": (
-            dict(outcome.get("stats") or {}, scope="corpus")
-            if outcome is not None
-            else None
-        ),
-        "owned": False,
-        "error": f"{HOST_WALK_MISSING} ({why})",
     }
 
 
@@ -298,11 +254,99 @@ def _skipped_result(name: str, reason: str) -> Dict:
     }
 
 
+def _analyze_one(
+    code: str,
+    creation_code: str,
+    name: str,
+    address: int,
+    prepass_outcome: Optional[Dict],
+    strategy: str = "bfs",
+    transaction_count: int = 2,
+    execution_timeout: int = 60,
+    create_timeout: int = 10,
+    max_depth: int = 128,
+    loop_bound: int = 3,
+    modules: Optional[List[str]] = None,
+    solver_timeout: Optional[int] = None,
+    disable_dependency_pruning: bool = False,
+    device=None,
+) -> Dict:
+    """The host walk of one contract (SymExecWrapper + fire_lasers) on
+    `device`, with the corpus prepass's outcome injected. Returns the
+    JAX package's result keys (issues, states, device_prepass, phases,
+    precovered_skips, wall_s, error) and `issue_objects`, the `Issue`s
+    the report is built from. A walk that raises is recorded in `error`
+    with its traceback, and no issues."""
+    from mythril_tpu_torch.analysis.security import fire_lasers
+    from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
+    from mythril_tpu_torch.ethereum.evmcontract import EVMContract
+    from mythril_tpu_torch.observe.spans import trace
+    from mythril_tpu_torch.support.phase_profile import PhaseProfile
+    from mythril_tpu_torch.support.support_args import args
+
+    t_start = time.perf_counter()
+    restore_timeout = args.solver_timeout
+    if solver_timeout:
+        args.solver_timeout = solver_timeout
+    try:
+        contract = EVMContract(
+            code=code or "", creation_code=creation_code or "", name=name
+        )
+        with trace("contract.analyze", contract=name):
+            sym = SymExecWrapper(
+                contract,
+                address,
+                strategy,
+                max_depth=max_depth,
+                execution_timeout=execution_timeout,
+                loop_bound=loop_bound,
+                create_timeout=create_timeout,
+                transaction_count=transaction_count,
+                modules=modules,
+                compulsory_statespace=False,
+                prepass_outcome=prepass_outcome,
+                disable_dependency_pruning=disable_dependency_pruning,
+                device=device,
+            )
+            issues = fire_lasers(sym, modules)
+        exploration = sym.device_exploration
+        return {
+            "name": name,
+            "issues": [issue.as_dict for issue in issues],
+            "issue_objects": issues,
+            "states": sym.laser.total_states,
+            "device_prepass": exploration["stats"] if exploration else None,
+            "phases": PhaseProfile().as_dict(),
+            "precovered_skips": sym.laser.device_precovered_skips,
+            "wall_s": round(time.perf_counter() - t_start, 3),
+            "error": None,
+        }
+    except Exception:
+        return {
+            "name": name,
+            "issues": [],
+            "issue_objects": [],
+            "states": 0,
+            "wall_s": round(time.perf_counter() - t_start, 3),
+            "error": traceback.format_exc(),
+        }
+    finally:
+        args.solver_timeout = restore_timeout
+
+
 def analyze_corpus(
     contracts: List[Tuple[str, str, str]],
     address: int = DEFAULT_ADDRESS,
+    strategy: str = "bfs",
     transaction_count: int = 2,
     execution_timeout: int = 60,
+    create_timeout: int = 10,
+    max_depth: int = 128,
+    loop_bound: int = 3,
+    modules: Optional[List[str]] = None,
+    solver_timeout: Optional[int] = None,
+    processes: Optional[int] = None,
+    disable_dependency_pruning: bool = False,
     device_budget_s: Optional[float] = None,
     deadline_s: Optional[float] = None,
     devices: Optional[int] = None,
@@ -310,32 +354,33 @@ def analyze_corpus(
     device=None,
 ) -> List[Dict]:
     """Analyze `contracts` = [(runtime_code_hex, creation_code_hex,
-    name), ...] through one striped device prepass on `device` (None:
-    the card) and the ownership gate. Returns one result dict per
-    contract ({name, issues, issue_objects, owned, error, complete,
+    name), ...]: one striped device prepass on `device` (None: the
+    card), then, contract by contract, the owned result or the host
+    walk with the contract's outcome injected. Returns one result dict
+    per contract ({name, issues, issue_objects, owned, error, complete,
     device_prepass, ...}).
 
-    Owned contracts carry the issues synthesized from their evidence.
-    Every other contract is `complete: False` with an `error` naming the
-    missing host walk. With `deadline_s` (falling back to the
-    process-global run deadline) an expired budget, or a SIGINT/SIGTERM
-    under `resilience.graceful_shutdown()`, marks the contracts not yet
-    reported as skipped; owned contracts still report in full.
-    `waves` caps the explorer's waves a phase (tests and chip_smoke.py
-    pass a small cap so that a run does not depend on the wall clock;
-    `device_budget_s` then still applies)."""
+    With `deadline_s` (falling back to the process-global run deadline)
+    an expired budget, or a SIGINT/SIGTERM under
+    `resilience.graceful_shutdown()`, marks the contracts not yet walked
+    as skipped; owned contracts still report in full. `waves` caps the
+    explorer's waves a phase (tests and chip_smoke.py pass a small cap
+    so that a run does not depend on the wall clock; `device_budget_s`
+    then still applies). `processes` above 1 (the JAX package's pooled
+    walk) raises: the port walks in this process."""
     from mythril_tpu_torch.support import resilience
 
-    if not _ownership_enabled():
+    if processes is not None and processes > 1:
         raise NotImplementedError(
-            "--device-ownership never sends every contract to the host "
-            "walk, which is not ported"
+            "the pooled host walk (processes > 1) is not ported: the port "
+            "walks the corpus in one process"
         )
     deadline = (
         resilience.run_deadline()
         if deadline_s is None
         else resilience.Deadline(deadline_s, label="corpus")
     )
+    own = _ownership_enabled()
     prepass = corpus_device_prepass(
         contracts,
         budget_s=device_budget_s,
@@ -347,12 +392,13 @@ def analyze_corpus(
         mesh_groups=devices,
         waves=waves,
         device=device,
+        ownership=own,
     )
     results = []
     halt_reason = None
     for i, (code, creation_code, name) in enumerate(contracts):
         outcome = prepass.get(i)
-        if _outcome_owns(outcome):
+        if own and _outcome_owns(outcome):
             # synthesis is cheap (no walk, no solver), so an owned
             # contract reports in full even after a halt
             results.append(
@@ -364,7 +410,26 @@ def analyze_corpus(
         if halt_reason is not None:
             results.append(_skipped_result(name, halt_reason))
             continue
-        results.append(_unowned_result(name, outcome))
+        result = _analyze_one(
+            code,
+            creation_code,
+            name,
+            address,
+            outcome,
+            strategy=strategy,
+            transaction_count=transaction_count,
+            execution_timeout=execution_timeout,
+            create_timeout=create_timeout,
+            max_depth=max_depth,
+            loop_bound=loop_bound,
+            modules=modules,
+            solver_timeout=solver_timeout,
+            disable_dependency_pruning=disable_dependency_pruning,
+            device=device,
+        )
+        result["owned"] = False
+        results.append(result)
+    _merge_prepass_witnesses(results, contracts, prepass, address)
     for i, result in enumerate(results):
         # per-contract completion status, first-class in the result
         # (and from there in the json/jsonv2 report meta)
@@ -375,3 +440,40 @@ def analyze_corpus(
             (prepass.get(i) or {}).get("device_complete")
         )
     return results
+
+
+def _merge_prepass_witnesses(
+    results: List[Dict],
+    contracts: List[Tuple[str, str, str]],
+    prepass: Dict[int, Dict],
+    address: int,
+) -> None:
+    """Fold the device prepass's banked witnesses into the walked
+    results: per contract, attach the prepass counters and append
+    witness issues for locations the walk did not report (a walk that
+    raised, or a contract the deadline skipped, keeps the device's
+    findings)."""
+    from mythril_tpu_torch.analysis.prepass import witness_issues
+    from mythril_tpu_torch.ethereum.evmcontract import EVMContract
+
+    for i, (code, _creation, name) in enumerate(contracts):
+        outcome = prepass.get(i)
+        result = results[i]
+        if outcome is None or result.get("owned"):
+            continue
+        result["device_prepass"] = outcome["stats"]
+        fresh = witness_issues(EVMContract(code=code or "", name=name), outcome, address)
+        seen = {(i.get("address"), i.get("swc-id")) for i in result["issues"]}
+        extra = [
+            issue for issue in fresh if (issue.address, issue.swc_id) not in seen
+        ]
+        if extra:
+            log.info(
+                "Device prepass contributed %d issue(s) to %s that the "
+                "host walk did not find",
+                len(extra),
+                name,
+            )
+            result["issues"].extend(issue.as_dict for issue in extra)
+            result["issue_objects"].extend(extra)
+            outcome["stats"]["witness_issues"] = len(extra)

@@ -1,2 +1,6 @@
-"""The detection modules' strings (remediation.py); the host detectors
-themselves are not ported."""
+from mythril_tpu_torch.analysis.module.base import DetectionModule, EntryPoint
+from mythril_tpu_torch.analysis.module.loader import ModuleLoader
+from mythril_tpu_torch.analysis.module.util import (
+    get_detection_module_hooks,
+    reset_callback_modules,
+)

@@ -1,8 +1,7 @@
 """Device-prepass witnesses -> concrete Issues.
 
-The port's copy of the JAX package's analysis/prepass.py, without
-`device_already_proved` (the host detection modules read it; they are
-not ported). The one change: a fault in evidence synthesis propagates
+The port's copy of the JAX package's analysis/prepass.py. The one
+change: a fault in evidence synthesis propagates
 instead of being logged and dropped, so an issue set is never quietly
 smaller than the evidence.
 
@@ -41,10 +40,11 @@ log = logging.getLogger(__name__)
 ASSERT_FAIL_BYTE = 0xFE
 
 #: (runtime_hex, address, swc_id) triples the device already holds a
-#: concrete witness for: the host detection modules (not ported) skip
-#: their own witness-concretization solve there. Keyed by bytecode so
-#: creation-code pcs and dynloaded foreign contracts never collide with
-#: the analyzed runtime's pc space.
+#: concrete witness for: the host detection modules skip their own
+#: witness-concretization solve there and let the banked device issue
+#: carry the finding (reset per analysis by SymExecWrapper). Keyed by
+#: bytecode so creation-code pcs and dynloaded foreign contracts never
+#: collide with the analyzed runtime's pc space.
 _PROVEN: set = set()
 
 
@@ -61,6 +61,27 @@ def register_proven(issues, code_hex: str) -> None:
     code_hex = _norm_code(code_hex)
     for issue in issues:
         _PROVEN.add((code_hex, issue.address, issue.swc_id))
+
+
+def device_already_proved(state, swc_id: str, address: int = None) -> bool:
+    """True when the prepass banked a concrete witness for the code
+    this state is executing, at `address` (default: the current
+    instruction): the module's Optimize query would re-derive what a
+    concrete execution already established."""
+    if not _PROVEN:
+        return False
+    code_hex = _norm_code(getattr(state.environment.code, "bytecode", ""))
+    if address is None:
+        address = state.get_current_instruction()["address"]
+    key = (code_hex, address, swc_id)
+    if key in _PROVEN:
+        from mythril_tpu_torch.laser.smt.solver.solver_statistics import (
+            SolverStatistics,
+        )
+
+        SolverStatistics().bump("device_cert_count")
+        return True
+    return False
 
 
 #: the gas limit the jsonv2 replay context claims (report.py

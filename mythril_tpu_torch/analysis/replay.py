@@ -34,6 +34,9 @@ from mythril_tpu_torch.laser.batch.state import (
 from mythril_tpu_torch.laser.batch.run import run
 from mythril_tpu_torch.support.accel import resolve_device
 
+#: the largest memory a replay lane gets (bytes)
+MAX_REPLAY_MEM = 1 << 20
+
 _STATUS_NAMES = {v: k for k, v in vars(Status).items() if isinstance(v, int)}
 
 
@@ -43,13 +46,14 @@ def _seen(batch, pc: int) -> bool:
 
 
 def replay_sequence(
-    tx_sequence: Dict, pc: int, max_steps: int = 4096, device=None
+    tx_sequence: Dict, pc: int, max_steps: int = 4096, device=None,
+    mem_cap: int = ROOMY_CAPS[0],
 ) -> Dict:
     """Replay `tx_sequence` (an issue's `tx_sequence`) on one lane on
-    `device` (None: the card) and report, for its last step, whether it
-    reached `pc` (`reached`), the lane's final status and pc, and whether
-    every earlier step ended in a successful halt (`prefix_ok`: a
-    reverted step banks no state)."""
+    `device` (None: the card) with `mem_cap` bytes of memory and report,
+    for its last step, whether it reached `pc` (`reached`), the lane's
+    final status and pc, and whether every earlier step ended in a
+    successful halt (`prefix_ok`: a reverted step banks no state)."""
     device = resolve_device(device)
     (target, account), *_ = (
         (k, v)
@@ -75,7 +79,7 @@ def replay_sequence(
             caller=int(step["origin"], 16),
             address=int(target, 16),
             gas_budget=REPLAY_GAS_LIMIT,
-            mem_cap=ROOMY_CAPS[0],
+            mem_cap=mem_cap,
             storage_cap=ROOMY_CAPS[1],
             calldata_cap=max(CALLDATA_CAP, len(calldata)),
             storage_seed=[storage],
@@ -101,8 +105,20 @@ def replays_to(issue: Dict, device=None) -> bool:
     """True when the issue's (`as_dict`) transaction sequence replays to
     its address: every earlier step halts successfully, the last one
     executes the issue's pc, and an SWC-106 or SWC-110 issue's last step
-    halts there with SELFDESTRUCT or the designated invalid opcode."""
-    got = replay_sequence(issue["tx_sequence"], issue["address"], device=device)
+    halts there with SELFDESTRUCT or the designated invalid opcode.
+
+    A host walk's witness may need more memory than the prepass caps
+    give a lane: a replay that faults ERR_MEM runs again at four times
+    the memory, up to MAX_REPLAY_MEM (a cap changes an execution only
+    once it is exceeded)."""
+    mem_cap = ROOMY_CAPS[0]
+    while True:
+        got = replay_sequence(
+            issue["tx_sequence"], issue["address"], device=device, mem_cap=mem_cap
+        )
+        if got["status"] != "ERR_MEM" or mem_cap >= MAX_REPLAY_MEM:
+            break
+        mem_cap *= 4
     halt = {"106": "KILLED", "110": "INVALID"}.get(issue["swc-id"])
     if halt is not None and (got["status"], got["pc"]) != (halt, issue["address"]):
         return False

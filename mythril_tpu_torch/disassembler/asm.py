@@ -1,8 +1,9 @@
 """Bytecode helpers: the port's copy of the JAX package's
-disassembler/asm.py without its assembler and easm view. The
-instruction list (`disassemble`, `find_op_code_sequence`) feeds
-`Disassembly`; `to_dense` gives the batched interpreter its opcode and
-jumpdest arrays."""
+disassembler/asm.py without its assembler. The instruction list
+(`disassemble`, `find_op_code_sequence`) feeds `Disassembly` and the host
+engine, which reads an instruction as the reference's dict;
+`instruction_list_to_easm` prints it; `to_dense` gives the batched
+interpreter its opcode and jumpdest arrays."""
 
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ regex_push = re.compile(r"^PUSH(\d{1,2})$")
 
 
 class EvmInstruction:
-    """One disassembled instruction (`to_dict` gives the reference's
-    {'address', 'opcode', 'argument'} record)."""
+    """One disassembled instruction (dict-compatible with the reference's
+    {'address', 'opcode', 'argument'} records)."""
 
     __slots__ = ("address", "opcode", "argument")
 
@@ -32,6 +33,18 @@ class EvmInstruction:
         if self.argument is not None:
             result["argument"] = self.argument
         return result
+
+    def __getitem__(self, key):  # dict-style access, as the host engine reads it
+        value = self.to_dict().get(key)
+        if value is None and key != "argument":
+            raise KeyError(key)
+        return value
+
+    def get(self, key, default=None):
+        return self.to_dict().get(key, default)
+
+    def __repr__(self):
+        return f"<{self.address} {self.opcode} {self.argument or ''}>"
 
 
 
@@ -84,6 +97,17 @@ def disassemble(bytecode: bytes) -> List[EvmInstruction]:
             instructions.append(EvmInstruction(address, name))
             address += 1
     return instructions
+
+
+def instruction_list_to_easm(instruction_list: List[EvmInstruction]) -> str:
+    """Printable assembly (reference: asm.py instruction_list_to_easm)."""
+    result = ""
+    for instruction in instruction_list:
+        result += "{} {}".format(instruction.address, instruction.opcode)
+        if instruction.argument is not None:
+            result += " " + instruction.argument
+        result += "\n"
+    return result
 
 
 def is_sequence_match(pattern, instruction_list, index) -> bool:

@@ -7,8 +7,7 @@ from the dispatcher's PUSH4/EQ jump table (`function_hash_to_name` and
 `func_hashes` name a witness's entry function in analysis/prepass.py),
 with the dense arrays the batched interpreter consumes (opcodes +
 jumpdest mask). Selectors are named from the port's sqlite
-`SignatureDB`, never online; the easm view and `assign_bytecode` (the
-host's create transaction) are not ported.
+`SignatureDB`, never online.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 from mythril_tpu_torch.disassembler import asm
+from mythril_tpu_torch.support.keccak import keccak256
 from mythril_tpu_torch.support.signatures import SignatureDB
 
 
@@ -50,6 +50,27 @@ class Disassembly:
                 self.address_to_function_name[entry_address] = function_name
 
         self.opcodes, self.jumpdest_mask = asm.to_dense(self.raw)
+
+    def assign_bytecode(self, bytecode: str) -> None:
+        """Replace this disassembly's code in place: a creation
+        transaction's returned runtime (reference:
+        transaction_models.py:246-262 via Disassembly.assign_bytecode)."""
+        self.__init__(bytecode)
+
+    def get_easm(self) -> str:
+        return asm.instruction_list_to_easm(self.instruction_list)
+
+    @property
+    def code_hash(self) -> str:
+        """keccak256 of the runtime code (reference:
+        support/support_utils.py:29 get_code_hash)."""
+        return "0x" + keccak256(self.raw).hex()
+
+    def __len__(self):
+        return len(self.raw)
+
+    def __repr__(self):
+        return f"<Disassembly {len(self.instruction_list)} instructions>"
 
 
 def get_function_info(index, instruction_list, signature_database):

@@ -1,25 +1,24 @@
 """`python -m mythril_tpu_torch analyze`: runtime bytecode in, the JAX
 package's `Report` out.
 
-A thin counterpart of the JAX package's `myth analyze`
-(interfaces/cli.py) with the flags of its device path: the bytecode
-(`-c`, or `-f` once per contract of a corpus) goes through one striped
-exploration on the card, the ownership gate and issue synthesis
-(analysis/corpus.py:analyze_corpus), and the report prints as text,
-markdown, json or jsonv2.
+A counterpart of the JAX package's `myth analyze` (interfaces/cli.py)
+with the flags of its corpus path: the bytecode (`-c`, or `-f` once per
+contract of a corpus) goes through one striped exploration on the card,
+the ownership gate and issue synthesis, and the host walk of every
+contract the device does not own (analysis/corpus.py:analyze_corpus),
+and the report prints as text, markdown, json or jsonv2.
 
-The port has no host engine, so:
-
-- creation bytecode, which needs the host's create transaction, is
-  refused: pass runtime bytecode with `--bin-runtime`;
-- a contract the device does not own is not analyzed. The report says
-  so (json and jsonv2 carry `partial` and the per-contract status; text
-  and markdown end with the contracts not analyzed, in place of the
-  templates' "completed successfully"; every form prints the reasons on
-  stderr) and the command exits with 1.
+Creation bytecode is refused: the corpus prepass explores runtime code,
+so pass runtime bytecode with `--bin-runtime`. A contract whose walk
+raised is not analyzed: the report says so (json and jsonv2 carry
+`partial` and the per-contract status; text and markdown end with the
+contracts not analyzed, in place of the templates' "completed
+successfully"; every form prints the reasons on stderr) and the command
+exits with 1.
 
 `--device cuda` (the default) runs on the card and raises where there is
-none; `--device cpu` runs the plain PyTorch versions of the kernels.
+none; `--device cpu` runs the plain PyTorch versions of the kernels and
+keeps every solver race on the CPU.
 """
 
 from __future__ import annotations
@@ -54,8 +53,28 @@ def build_parser() -> argparse.ArgumentParser:
     )
     analyze.add_argument(
         "--bin-runtime", action="store_true",
-        help="consider the input bytecode as runtime code (required: "
-        "creation bytecode needs the host engine, which is not ported)",
+        help="consider the input bytecode as runtime code (required: the "
+        "corpus prepass explores runtime code)",
+    )
+    analyze.add_argument(
+        "-m", "--modules", metavar="MODULES",
+        help="Comma-separated list of security analysis modules",
+    )
+    analyze.add_argument(
+        "--max-depth", type=int, default=128,
+        help="Maximum recursion depth for symbolic execution",
+    )
+    analyze.add_argument(
+        "--call-depth-limit", type=int, default=3,
+        help="Maximum call depth limit for symbolic execution",
+    )
+    analyze.add_argument(
+        "--strategy", choices=["dfs", "bfs", "naive-random", "weighted-random"],
+        default="bfs", help="Symbolic execution strategy",
+    )
+    analyze.add_argument(
+        "-b", "--loop-bound", type=int, default=3, metavar="N",
+        help="Bound loops at n iterations",
     )
     analyze.add_argument(
         "-o", "--outform", choices=OUTFORMS, default="text",
@@ -67,13 +86,21 @@ def build_parser() -> argparse.ArgumentParser:
     )
     analyze.add_argument(
         "--execution-timeout", type=int, default=86400,
-        help="The amount of seconds to spend on symbolic execution (sizes "
-        "the device prepass budget)",
+        help="The amount of seconds to spend on symbolic execution",
+    )
+    analyze.add_argument(
+        "--solver-timeout", type=int, default=10000,
+        help="The maximum amount of time(in milli seconds) the solver spends "
+        "for queries from analysis modules",
+    )
+    analyze.add_argument(
+        "--create-timeout", type=int, default=10,
+        help="The amount of seconds to spend on the initial contract creation",
     )
     analyze.add_argument(
         "--device-ownership", choices=["auto", "never"], default="auto",
         help="Let the device OWN contracts its exploration covered end to "
-        "end (auto); never needs the host walk, which is not ported",
+        "end (auto); never walks every contract on the host",
     )
     analyze.add_argument(
         "--parallel-solving", action="store_true",
@@ -91,6 +118,19 @@ def build_parser() -> argparse.ArgumentParser:
         help="Wall cap for the escalation ladder's host-CDCL pass over one "
         "wave's flip survivors (default 5.0; 0 defers every survivor); "
         "capped queries are recorded SPRINT_PREEMPTED and retried next wave",
+    )
+    analyze.add_argument(
+        "--enable-iprof", action="store_true",
+        help="enable the instruction profiler",
+    )
+    analyze.add_argument(
+        "--disable-dependency-pruning", action="store_true",
+        help="Deactivate dependency-based pruning",
+    )
+    analyze.add_argument(
+        "--enable-coverage-strategy", action="store_true",
+        help="enable coverage based search strategy (parsed and ignored, "
+        "as in the JAX package)",
     )
     analyze.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -132,8 +172,8 @@ def load_codes(args) -> List[Tuple[str, str]]:
 
 
 def build_report(contracts, results, degradation_marker):
-    """The JAX package's Report over the owned contracts' issues, with
-    the per-contract status and the unanalyzed contracts' reasons."""
+    """The JAX package's Report over the contracts' issues, with the
+    per-contract status and the unanalyzed contracts' reasons."""
     from mythril_tpu_torch.analysis.report import Report
     from mythril_tpu_torch.support.resilience import DegradationLog
 
@@ -182,8 +222,8 @@ def run_analyze(args) -> int:
     if not args.bin_runtime:
         exit_with_error(
             args.outform,
-            "creation bytecode needs the host engine's create transaction, "
-            "which is not ported: pass runtime bytecode with --bin-runtime",
+            "the corpus prepass explores runtime code: pass runtime "
+            "bytecode with --bin-runtime",
         )
     device = resolve_device(None if args.device == "cuda" else args.device)
     flags.device_ownership = args.device_ownership
@@ -191,14 +231,27 @@ def run_analyze(args) -> int:
     flags.deterministic_solving = args.deterministic_solving
     if args.sprint_cap_s is not None:
         flags.sprint_cap_s = args.sprint_cap_s
+    flags.call_depth_limit = args.call_depth_limit
+    flags.iprof = args.enable_iprof
     StartTime()
     contracts = [EVMContract(code=code, name=name) for name, code in codes]
     marker = resilience.DegradationLog().marker()
     with resilience.graceful_shutdown():
         results = analyze_corpus(
             [(c.code, "", c.name) for c in contracts],
+            strategy=args.strategy,
             transaction_count=args.transaction_count,
             execution_timeout=args.execution_timeout,
+            create_timeout=args.create_timeout,
+            max_depth=args.max_depth,
+            loop_bound=args.loop_bound,
+            modules=(
+                [m.strip() for m in args.modules.strip().split(",")]
+                if args.modules
+                else None
+            ),
+            solver_timeout=args.solver_timeout,
+            disable_dependency_pruning=args.disable_dependency_pruning,
             device=device,
         )
     report, errors = build_report(contracts, results, marker)

@@ -3,10 +3,13 @@
 The port never imports the JAX package; these functions take and give
 plain numpy in the JAX package's layout and dtypes: the fields of its
 `make_batch(..., as_numpy=True)`, a `jax.device_get` of a final batch,
-its CodeTable, its SymBatch, and its (lo, hi) uint32 keccak lane pairs.
+its CodeTable, its SymBatch, its (lo, hi) uint32 keccak lane pairs, and
+its device-prepass outcomes (as JSON).
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -83,3 +86,32 @@ def lanes_to_lohi(lanes: torch.Tensor):
     u = lanes.detach().cpu().numpy().view(np.uint64)
     return ((u & np.uint64(0xFFFFFFFF)).astype(np.uint32),
             (u >> np.uint64(32)).astype(np.uint32))
+
+
+def outcome_to_json(outcome) -> str:
+    """A device-prepass outcome (the JAX package's explorer's or the
+    port's) as JSON: sets and tuples become lists (sets sorted), numpy
+    scalars plain numbers. `outcome_from_json` reads it back as the
+    outcome the host walk takes (`SymExecWrapper(prepass_outcome=)`)."""
+
+    def plain(x):
+        if isinstance(x, dict):
+            return {str(k): plain(v) for k, v in x.items()}
+        if isinstance(x, (set, frozenset)):
+            return sorted(plain(v) for v in x)
+        if isinstance(x, (list, tuple)):
+            return [plain(v) for v in x]
+        if isinstance(x, np.generic):
+            return x.item()
+        return x
+
+    return json.dumps(plain(outcome), sort_keys=True)
+
+
+def outcome_from_json(text: str) -> dict:
+    """The outcome `outcome_to_json` wrote, with `covered_branches` as
+    (pc, direction) tuples."""
+    outcome = json.loads(text)
+    if "covered_branches" in outcome:
+        outcome["covered_branches"] = [tuple(b) for b in outcome["covered_branches"]]
+    return outcome

@@ -5,9 +5,10 @@ tests/testdata/vendored/VMTests, public consensus test vectors) are
 replayed as ONE StateBatch: every test is a lane, the step advances all
 of them together, and verdicts are read back from the final batch
 (post-storage, output, gas bounds), as the JAX package's
-laser/conformance.py does. Lanes the device cannot finish are judged
-"skip"; continuing them on a host engine (`hybrid=True`) waits for the
-host engine's port.
+laser/conformance.py does. With `hybrid` (the default), lanes the
+device cannot finish (UNSUPPORTED, memory capacity) are lifted mid-frame
+into the host engine (laser/batch/takeover.py) and judged on the
+continued execution; without it they are judged "skip".
 """
 
 from __future__ import annotations
@@ -287,17 +288,36 @@ def _verdict(case: VmTest, batch, lane: int) -> str:
 STRAGGLER_STEPS = 1 << 17
 
 
-def run_cases(cases, max_steps: int = 4096, hybrid: bool = False,
+def _host_verdict(case: VmTest, outcome: dict) -> str:
+    """Judge a host-takeover continuation against the fixture."""
+    if case.post_storage is None:
+        return (
+            "pass"
+            if not outcome["open"]
+            else "fail: completed on host but exceptional halt expected"
+        )
+    if not outcome["open"]:
+        return "fail: host continuation halted exceptionally"
+    if case.check_storage and outcome["storage"] != case.post_storage:
+        return "fail: storage mismatch after host takeover"
+    if outcome["out"] != case.out:
+        return "fail: out mismatch after host takeover"
+    if case.gas_used is not None:
+        if not any(lo <= case.gas_used <= hi for lo, hi in outcome["gas_bounds"]):
+            return "fail: gas bounds exclude actual after host takeover"
+    return "pass"
+
+
+def run_cases(cases, max_steps: int = 4096, hybrid: bool = True,
               straggler_steps: int = STRAGGLER_STEPS, device=None):
     """Run every case in one batch on `device` (the card unless named);
     return {name: verdict}.
 
     Lanes still RUNNING after the main pass get one re-run with
-    `straggler_steps` when that is larger than `max_steps`. `hybrid`
-    (continuing UNSUPPORTED lanes on a host engine) is not ported yet."""
-    if hybrid:
-        raise NotImplementedError(
-            "hybrid replay needs the host engine, which is not ported yet")
+    `straggler_steps` when that is larger than `max_steps`. With
+    `hybrid`, lanes the device cannot finish (UNSUPPORTED / capacity)
+    are lifted mid-frame into the host engine and judged on the
+    continued execution instead of skipping (takeover.py)."""
     device = resolve_device(device)
     batch, code_table = build_batch(cases, device=device)
     final, _ = run(batch, code_table, max_steps=max_steps, track_coverage=False)
@@ -315,4 +335,23 @@ def run_cases(cases, max_steps: int = 4096, hybrid: bool = False,
         for j, i in enumerate(stragglers):
             lanes[i] = (long_run, j)
 
-    return {c.name: _verdict(c, *lanes[i]) for i, c in enumerate(cases)}
+    verdicts = {}
+    for i, c in enumerate(cases):
+        view, lane = lanes[i]
+        verdict = _verdict(c, view, lane)
+        if hybrid and int(view.status[lane]) in (Status.UNSUPPORTED, Status.ERR_MEM):
+            from mythril_tpu_torch.laser.batch.takeover import resume_on_host
+
+            outcome = resume_on_host(
+                c.code.hex(),
+                view,
+                lane,
+                extra_accounts=[
+                    (addr, code, bal, dict(slots))
+                    for addr, code, bal, slots in c.foreign_accounts
+                ],
+            )
+            if outcome is not None:
+                verdict = _host_verdict(c, outcome)
+        verdicts[c.name] = verdict
+    return verdicts

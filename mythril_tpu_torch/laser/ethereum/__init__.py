@@ -1,2 +1,3 @@
-"""The EVM layer of the host engine; the port holds only the attacker
-transaction's actors (transaction/symbolic.py)."""
+"""The host symbolic EVM engine (LASER): path states over the SMT layer,
+the instruction semantics, the transaction drivers and the search
+strategies that the host walk runs."""

@@ -32,11 +32,10 @@ near-miss histogram (``mtpu_solver_race_margin_seconds``, how late a
 witness arrived after the host answered) waits for the metrics registry
 (ROADMAP Queue 1 item 9).
 
-No path of the port starts a race today: the only caller of
-`check_terms` outside the tests is the explorer's escalation ladder,
-which solves while its exploration holds `DEVICE_BUSY`. The race's
-first real caller is the host walk (ROADMAP Queue 1 item 5); until it
-is ported the race runs only in the tests, on the CPU.
+The race's caller is the host walk (analysis/symbolic.py): its
+`check_terms` run after the corpus prepass has released `DEVICE_BUSY`,
+on the walk's device. The explorer's escalation ladder solves while its
+exploration holds `DEVICE_BUSY`, so it starts none.
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ caller names (`Solver`, `Optimize`, `check_terms` and `get_model` take
 it: None means the card and raises where there is none, "cpu" runs the
 plain portfolio); the race has no off switch (the JAX package's
 `args.device_solving`): it starts wherever no exploration holds the
-card (`device_race.race_available`), which no caller of the port's
-reaches yet (device_race.py); and the race's errors are counted, never
+card (`device_race.race_available`), which the host walk's queries
+reach (device_race.py); and the race's errors are counted, never
 swallowed (device_race.py).
 The statistics are plain in-process counters (solver_statistics.py,
 observe/solverstats.py).

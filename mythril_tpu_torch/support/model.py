@@ -12,7 +12,9 @@ remaining execution time.
 
 from __future__ import annotations
 
+import contextvars
 from collections import OrderedDict
+from contextlib import contextmanager
 from typing import Dict, Iterable, Tuple
 
 from mythril_tpu_torch.exceptions import SolverTimeOutException, UnsatError
@@ -20,13 +22,34 @@ from mythril_tpu_torch.laser.ethereum.time_handler import time_handler
 from mythril_tpu_torch.laser.smt import Bool
 from mythril_tpu_torch.laser.smt.model import Model
 from mythril_tpu_torch.laser.smt.solver import Optimize, sat, unknown, unsat
+from mythril_tpu_torch.support.support_args import args
 
 _CACHE_MAX = 2**20
 _cache: "OrderedDict[Tuple, Tuple[str, Model]]" = OrderedDict()
 
 
+#: where a get_model call that names no device races and escapes (None:
+#: the card); set for the host walk by `solver_device`
+_DEVICE = contextvars.ContextVar("solver_device", default=None)
+_UNSET = object()
+
+
 def clear_cache() -> None:
     _cache.clear()
+
+
+@contextmanager
+def solver_device(device):
+    """Run the block's get_model calls that name no device on `device`.
+    The host walk's engine and detection modules call get_model as the
+    JAX package does, without a device; SymExecWrapper and fire_lasers
+    wrap them in their wrapper's device, so `--device cpu` keeps every
+    race of the walk on the CPU and the default races on the card."""
+    token = _DEVICE.set(device)
+    try:
+        yield
+    finally:
+        _DEVICE.reset(token)
 
 
 def get_model(
@@ -34,18 +57,17 @@ def get_model(
     minimize=(),
     maximize=(),
     enforce_execution_time: bool = True,
-    solver_timeout: int = 10_000,
-    device=None,
+    solver_timeout: int = None,
+    device=_UNSET,
 ) -> Model:
     """Return a model for `constraints` or raise UnsatError.
 
     minimize/maximize are BitVec objectives (used by
     analysis/solver.get_transaction_sequence to shrink witnesses).
-    `solver_timeout` is in ms (the JAX package's default reads
-    `args.solver_timeout`, 10,000; the port's one caller, the explorer's
-    ladder, passes 2000). `device` is where a race or the
-    --parallel-solving escape searches (None: the card); the memo key
-    leaves it out, since a verdict does not depend on it.
+    `solver_timeout` is in ms (default `args.solver_timeout`). `device`
+    is where a race or the --parallel-solving escape searches (None: the
+    card; unset: the enclosing `solver_device`, else the card); the memo
+    key leaves it out, since a verdict does not depend on it.
     """
     from mythril_tpu_torch.laser.smt.bool import Bool as BoolType
 
@@ -57,7 +79,9 @@ def get_model(
             c = symbol_factory.Bool(c)
         norm.append(c)
 
-    timeout = solver_timeout
+    if device is _UNSET:
+        device = _DEVICE.get()
+    timeout = solver_timeout or args.solver_timeout
     if enforce_execution_time:
         timeout = min(timeout, time_handler.time_remaining() - 500)
         if timeout <= 0:

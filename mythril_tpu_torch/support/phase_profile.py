@@ -25,17 +25,24 @@ class PhaseProfile(object, metaclass=Singleton):
         self._mu = threading.Lock()
         self._totals: Dict[str, list] = {}
 
+    def reset(self) -> None:
+        """Start a fresh per-contract window."""
+        with self._mu:
+            self._totals = {}
+
     @contextmanager
     def measure(self, phase: str):
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            wall = time.perf_counter() - t0
-            with self._mu:
-                row = self._totals.setdefault(phase, [0.0, 0])
-                row[0] += wall
-                row[1] += 1
+            self.add(phase, time.perf_counter() - t0)
+
+    def add(self, phase: str, seconds: float, n: int = 1) -> None:
+        with self._mu:
+            row = self._totals.setdefault(phase, [0.0, 0])
+            row[0] += seconds
+            row[1] += n
 
     def as_dict(self) -> Dict[str, Dict[str, float]]:
         with self._mu:

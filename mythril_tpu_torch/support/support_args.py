@@ -18,6 +18,16 @@ from mythril_tpu_torch.support.support_utils import Singleton
 
 class Args(object, metaclass=Singleton):
     def __init__(self):
+        # the host walk's knobs (CLI --solver-timeout, --call-depth-limit,
+        # --enable-iprof); the JAX package's names and defaults
+        self.solver_timeout = 10_000  # ms per query
+        self.call_depth_limit = 3
+        self.iprof = False
+        # the device exploration before the host walk of one contract
+        # (analysis/symbolic.py:SymExecWrapper) when no outcome is
+        # injected: "auto" runs it on the wrapper's device, "never"
+        # walks without it
+        self.device_prepass = "auto"
         # --parallel-solving: a query the CDCL leaves unknown gets one
         # portfolio search where the analysis runs (one card: several
         # are ROADMAP Queue 1 item 8)
@@ -48,9 +58,8 @@ class Args(object, metaclass=Singleton):
         self.pipeline = False
         # Device ownership (CLI --device-ownership): a contract whose
         # exploration the completeness gates accept is reported from its
-        # device evidence alone. auto owns; never would send
-        # every contract to the host walk, which is not ported, so the
-        # corpus analysis raises on it.
+        # device evidence alone. auto owns; never sends every contract
+        # to the host walk, with its prepass outcome injected.
         self.device_ownership = "auto"
 
 

@@ -17,7 +17,8 @@ JAX package's on the same inputs:
   the wall budget, so that a run does not depend on the clock. The JAX
   side is its own `analyze_corpus` on its single-process path (the
   prepass, then the ownership gate and `_owned_result`; an unowned
-  contract goes to its host walk), with static pruning off, the
+  contract goes to its host walk, as in the port), under
+  `deterministic_solving` on both sides, with static pruning off, the
   device-first funnel on and the host escalation ladder off
   (`_sprint_cap_s` returns -1.0, as in tests/test_torch_explore.py),
   since the port defers every device survivor. The round-5 contracts run
@@ -42,9 +43,12 @@ What is held, and how exactly:
   carries no time field, so nothing is masked);
 - `Report` as text, markdown, json and jsonv2 renders equal text on the
   same issues, with jsonv2's `discoveryTime` (a wall time) masked;
-- a contract the device does not own is `complete: False` with an error
-  naming the missing host walk, the CLI exits with 1 on it, and a
-  prepass failure raises.
+- a contract the device does not own is walked on the host with its
+  prepass outcome injected: it is `complete: True` with the JAX walk's
+  issue fingerprints, and the CLI exits 0 on it; `--device-ownership
+  never` walks every contract; a walk that raises leaves its contract
+  `complete: False` with the traceback in `error`, and the CLI exits 1;
+  a prepass failure raises.
 
 The JAX side is pinned in tests/test_torch_analyze_pinned.json; one test
 runs it live on the milestone corpus. Regenerate the pin with
@@ -54,9 +58,10 @@ runs it live on the milestone corpus. Regenerate the pin with
 and the JAX side of chip_smoke.py's pinned analysis (the 13 vendored
 contracts under the enumeration-only solver with the host ladder at a
 cap that does not bind, under `deterministic_solving`, from a fresh
-solver session: chip_smoke.py VENDORED_LADDER_PIN,
+solver session, the eight the device does not own walked on the host:
+chip_smoke.py VENDORED_LADDER_PIN,
 tests/test_torch_analyze_vendored_ladder_pinned.json) with
-`--pin-vendored-ladder` (about a minute).
+`--pin-vendored-ladder` (about four minutes).
 """
 
 import json
@@ -128,13 +133,16 @@ def enum_only_solver(pf, **kw):
 
 @pytest.fixture(scope="module", autouse=True)
 def ladder_off():
-    """The port's host ladder off for the module, as the pins were made."""
+    """The port's host ladder off and deterministic solving on for the
+    module, as the pins were made (the walk's queries then race
+    nothing)."""
     from mythril_tpu_torch.support.support_args import args
 
-    saved = args.sprint_cap_s
+    saved = args.sprint_cap_s, args.deterministic_solving
     args.sprint_cap_s = 0.0
+    args.deterministic_solving = True
     yield
-    args.sprint_cap_s = saved
+    args.sprint_cap_s, args.deterministic_solving = saved
 
 
 @pytest.fixture(scope="module")
@@ -184,11 +192,14 @@ def test_every_witness_replays_to_its_pc(name, port_results):
 
 
 def test_unowned_contract_is_reported_not_analyzed(port_results, pinned):
+    """The contract the device does not own (every lane degrades) is now
+    analyzed by the host walk, with the JAX walk's issues."""
     (result,) = port_results["degrader"]
-    assert [result["name"], False, []] == pinned["analyze"]["degrader"][0]
-    assert result["complete"] is False and result["owned"] is False
-    assert result["issues"] == [] and "host walk" in result["error"]
-    assert "no_degraded" in result["error"]
+    assert summarize([result]) == pinned["analyze"]["degrader"]
+    assert result["complete"] is True and result["owned"] is False
+    assert result["error"] is None and result["device_complete"] is False
+    assert result["states"] > 0 and result["issues"]
+    assert result["device_prepass"]["scope"] == "corpus"
 
 
 def test_inputs_are_the_jax_suites_contracts():
@@ -231,14 +242,24 @@ def test_expired_deadline_marks_contracts_skipped():
 
 
 def test_unported_options_raise(monkeypatch):
+    """The multi-chip scheduler and the pooled walk raise;
+    `--device-ownership never` walks every contract, the owned ones too,
+    with their device outcome injected."""
     from mythril_tpu_torch.support.support_args import args
 
     rows = [(GATED_KILL, "", "g")]
     with pytest.raises(NotImplementedError, match="multi-chip"):
         port_corpus.analyze_corpus(rows, devices=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="pooled"):
+        port_corpus.analyze_corpus(rows, processes=2, device="cpu")
     monkeypatch.setattr(args, "device_ownership", "never")
-    with pytest.raises(NotImplementedError, match="host walk"):
-        port_corpus.analyze_corpus(rows, device="cpu")
+    (result,) = port_corpus.analyze_corpus(
+        rows, transaction_count=2, execution_timeout=30, waves=WAVES,
+        device_budget_s=NO_BUDGET, device="cpu")
+    assert result["owned"] is False and result["complete"] is True
+    assert result["device_complete"] is True and result["states"] > 0
+    assert [(i["swc-id"], i["address"], i["title"]) for i in result["issues"]] == [
+        ("106", 15, "Unprotected Selfdestruct")]
 
 
 # ---------------------------------------------------------------------------
@@ -425,29 +446,43 @@ def test_cli_reports_swc106_at_address_15():
         ("106", 15, "Unprotected Selfdestruct", "High", "fallback")]
 
 
-def test_cli_exits_1_on_a_contract_it_does_not_own(tmp_path, capsys):
+def test_cli_exits_1_on_a_contract_it_does_not_own(tmp_path, capsys, monkeypatch):
+    """A contract the device does not own is walked: the report holds
+    its issues and the command exits 0. Only a walk that raises leaves a
+    contract unanalyzed, and then the command exits 1."""
+    from mythril_tpu_torch.analysis import symbolic as port_symbolic
     from mythril_tpu_torch.interfaces import cli
 
     a, b = tmp_path / "assert.hex", tmp_path / "degrader.hex"
     a.write_text(ALWAYS_ASSERT + "\n")
     b.write_text(DEGRADER + "\n")
     rc = cli.main(["analyze", "--bin-runtime", "-f", str(a), "-f", str(b), "-o", "text",
-                   "--device", "cpu"])
+                   "--device", "cpu", "--deterministic-solving"])
+    out, err = capsys.readouterr()
+    assert rc == 0, err
+    assert out.count("==== Exception State ====") == 2
+    assert "not analyzed" not in out + err and "not ported" not in out + err
+    rc = cli.main(["analyze", "--bin-runtime", "-c", DEGRADER, "-o", "jsonv2",
+                   "--device", "cpu", "--deterministic-solving"])
+    out, _ = capsys.readouterr()
+    assert rc == 0
+    (doc,) = json.loads(out)
+    assert [i["swcID"] for i in doc["issues"]] == ["SWC-110"]
+    assert "partial" not in doc["meta"]
+
+    def fault(self, *a, **kw):
+        raise RuntimeError("walk fault")
+
+    monkeypatch.setattr(port_symbolic.SymExecWrapper, "__init__", fault)
+    rc = cli.main(["analyze", "--bin-runtime", "-c", DEGRADER, "-o", "jsonv2",
+                   "--device", "cpu", "--deterministic-solving"])
     out, err = capsys.readouterr()
     assert rc == 1
-    assert "==== Exception State ====" in out
-    assert "completed successfully" not in out
-    assert "1 of 2 contract(s) were not analyzed" in out
-    assert f"{b}: not analyzed" in err and "host walk" in err
-    rc = cli.main(["analyze", "--bin-runtime", "-c", DEGRADER, "-o", "jsonv2",
-                   "--device", "cpu"])
-    out, _ = capsys.readouterr()
-    assert rc == 1
     (doc,) = json.loads(out)
-    assert doc["issues"] == [] and doc["meta"]["partial"] is True
+    assert doc["meta"]["partial"] is True
     assert doc["meta"]["degradation"]["contracts"] == [
         {"contract": "MAIN", "complete": False, "device_complete": False, "owned": False}]
-    assert "host walk" in doc["meta"]["logs"][0]["msg"]
+    assert "walk fault" in doc["meta"]["logs"][0]["msg"] and "walk fault" in err
 
 
 def test_ladder_escape_searches_where_the_analysis_runs(monkeypatch):
@@ -484,6 +519,7 @@ def test_ladder_escape_searches_where_the_analysis_runs(monkeypatch):
         port_solver.reset_blast_session()
     assert seen and set(seen) == {"cpu"}
     assert result["name"] == "wrap_and_origin" and "device_prepass" in result
+    assert result["error"] is None, result["error"]
 
 
 def test_cli_refuses_creation_bytecode(capsys):
@@ -531,7 +567,7 @@ def jax_analyze(name, setattr_):
     setattr_(jax_corpus, "corpus_device_prepass", recording)
     results = jax_corpus.analyze_corpus(
         rows, transaction_count=2, execution_timeout=30, use_device=True, processes=1,
-        store=False, router=False)
+        store=False, router=False, deterministic_solving=True)
     outcomes = [{"triggers": seen[i]["triggers"], "evidence": seen[i]["evidence"]}
                 for i in range(len(rows))]
     return results, outcomes
@@ -544,10 +580,7 @@ def pin() -> None:
     for name in CORPORA:
         with pytest.MonkeyPatch.context() as mp:
             results, outcomes = jax_analyze(name, mp.setattr)
-        # an unowned contract's host-walk issues are the walk's, which the
-        # port does not have: only owned contracts' issues are held
-        doc["analyze"][name] = [
-            [n, owned, fps if owned else []] for n, owned, fps in summarize(results)]
+        doc["analyze"][name] = summarize(results)
         doc["outcomes"][name] = json.loads(json.dumps(outcomes))
         print(name, doc["analyze"][name])
     PINNED.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
@@ -556,11 +589,12 @@ def pin() -> None:
 
 def pin_vendored_ladder() -> None:
     """The JAX side of chip_smoke.py's pinned ladder-on analysis: the 13
-    vendored contracts through the device half of the JAX package's
-    analyze_corpus (corpus_device_prepass at the small-corpus geometry,
-    capped at VENDORED_WAVES waves a phase with no wall budget, then
-    `_outcome_owns` and `_owned_result`; the host walk of an unowned
-    contract is not run), with the explorer's host ladder at
+    vendored contracts through the JAX package's analyze_corpus, single
+    process (corpus_device_prepass at the small-corpus geometry, capped
+    at VENDORED_WAVES waves a phase with no wall budget, then
+    `_outcome_owns` and `_owned_result`; every other contract through
+    its host walk, `_analyze_one`, with its outcome injected, and
+    `_merge_prepass_witnesses`), with the explorer's host ladder at
     VENDORED_LADDER_CAP_S (it does not bind), `deterministic_solving`
     on, a fresh solver session and memo cache, and the enumeration-only
     device solver (the JAX device SLS at this geometry had not finished
@@ -599,23 +633,30 @@ def pin_vendored_ladder() -> None:
         outcomes = jax_corpus.corpus_device_prepass(
             rows, address=ADDR, transaction_count=2, execution_timeout=86400,
             ownership=True)
-    wall = time.perf_counter() - t0
-    contracts = []
-    for i, (code, _, name) in enumerate(rows):
-        owned = jax_corpus._outcome_owns(outcomes.get(i))
-        fps = []
-        if owned:
-            res = jax_corpus._owned_result(code, "", name, outcomes[i], ADDR)
+        wall = time.perf_counter() - t0
+        contracts = []
+        for i, (code, _, name) in enumerate(rows):
+            owned = jax_corpus._outcome_owns(outcomes.get(i))
+            if owned:
+                res = jax_corpus._owned_result(code, "", name, outcomes[i], ADDR)
+            else:
+                t1 = time.perf_counter()
+                res = jax_corpus._analyze_one((
+                    code, "", name, ADDR, "bfs", 2, 86400, 10, 128, 3, None, None,
+                    False, outcomes.get(i), True))
+                assert res["error"] is None, res["error"]
+                jax_corpus._merge_prepass_witnesses([res], [rows[i]], {0: outcomes[i]}, ADDR)
+                print(f"{name}: walked in {time.perf_counter() - t1:.1f} s")
             fps = sorted(fingerprint(issue) for issue in res["issues"])
-        contracts.append([name, owned, fps])
-        print(name, owned, [fp[:2] for fp in fps])
+            contracts.append([name, owned, fps])
+            print(name, owned, [fp[:2] for fp in fps])
     stats = next((o.get("device_prepass") or o.get("stats") for o in outcomes.values()
                   if isinstance(o, dict) and (o.get("device_prepass") or o.get("stats"))), {})
     doc = {"settings": {"waves": VENDORED_WAVES, "lanes_per_contract": 32,
                         "transaction_count": 2, "ladder": "on",
                         "sprint_cap_s": VENDORED_LADDER_CAP_S,
                         "deterministic_solving": True, "budget_s": None,
-                        "solver": "enumeration only"},
+                        "solver": "enumeration only", "host_walk": "bfs, JAX defaults"},
            "host_sat": stats.get("host_sat"),
            "contracts": contracts}
     VENDORED_LADDER_PIN.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")

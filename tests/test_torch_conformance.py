@@ -114,8 +114,12 @@ def test_verdicts_match_jax(cases):
 
 
 def test_hybrid_is_not_ported_yet(cases):
-    with pytest.raises(NotImplementedError):
-        tconf.run_cases(cases[:1], hybrid=True, device="cpu")
+    """The hybrid replay is ported, and the default: on lanes the device
+    finishes it changes no verdict (tests/test_torch_walk_vmtests.py
+    holds the lanes it takes over)."""
+    plain = tconf.run_cases(cases[:4], hybrid=False, straggler_steps=0, device="cpu")
+    assert tconf.run_cases(cases[:4], straggler_steps=0, device="cpu") == plain
+    assert set(plain.values()) == {"pass"}
 
 
 def test_pinned_verdicts_cover_the_corpus():

@@ -8,9 +8,13 @@ layer, `compile_program`, enumeration through `portfolio_eval`) and a
 two-contract `DeviceCorpusExplorer` run (laser/batch/explore.py, with
 its resilience, checkpoint, span and capture modules), a one-contract
 `analyze_corpus` with its issue synthesis, replay and report in every
-form (analysis/, with the command line's `build_report`), and a query
+form (analysis/, with the command line's `build_report`), a query
 through the host solver stack (`get_model`: the bit-blaster and the
-CDCL of the port's own g++ library), and checks that `jax` never
+CDCL of the port's own g++ library), the host walk of a contract under
+`--device-ownership never` (the LASER engine, its plugins and the
+detection modules), a hybrid VMTests case (the host takeover) and an
+import of every module of the package (crypto/ and the precompiles
+among them), and checks that `jax` never
 entered `sys.modules`, that no module of the JAX package did either,
 and that no shared object under `mythril_tpu/` is mapped into the
 process (/proc/self/maps). A source scan finds no import of either in the
@@ -89,6 +93,23 @@ from mythril_tpu_torch.support.model import get_model
 q = symbol_factory.BitVecSym("iso_q", 256)
 m = get_model((q * 3 == 9, ULT(q, 10)), enforce_execution_time=False)
 assert m.eval_int(q) == 3, m.assignment
+from mythril_tpu_torch.support.support_args import args
+args.device_ownership, args.deterministic_solving = "never", True
+(walked,) = corpus.analyze_corpus([("604260003560f81c14600d57005b33ff", "", "g")],
+                                  waves=2, device="cpu")
+assert not walked["owned"] and walked["complete"] and walked["states"] > 0, walked
+assert [i["swc-id"] for i in walked["issues"]] == ["106"], walked["issues"]
+from mythril_tpu_torch.laser import conformance
+(case,) = [c for c in conformance.load_vmtests()[0] if c.name == "vmSha3Test/sha3_bigOffset2"]
+assert conformance.run_cases([case], device="cpu") == {case.name: "pass"}
+import importlib, pkgutil
+import mythril_tpu_torch
+for mod in pkgutil.walk_packages(mythril_tpu_torch.__path__, "mythril_tpu_torch."):
+    if not mod.name.endswith("__main__"):
+        importlib.import_module(mod.name)
+from mythril_tpu_torch.laser.ethereum import natives
+assert natives.sha256(list(b"abc"))[:2] == [0xBA, 0x78], natives.sha256(list(b"abc"))[:2]
+assert natives.ec_add([0] * 128) == [0] * 64
 paths = {line.split()[-1] for line in open("/proc/self/maps") if line.count("/")}
 jax_dir = os.path.realpath("mythril_tpu") + os.sep
 port_lib = os.path.realpath("mythril_tpu_torch/_build/libmythril_torch_host.so")
