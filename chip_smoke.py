@@ -147,7 +147,11 @@ own prepass.
    small-corpus prepass geometry, the waves a phase capped at 8 (the JAX
    package's cap is 48), with the host escalation ladder on and the host
    walk (SymExecWrapper + fire_lasers, the prepass outcome injected) of
-   every contract the device does not own, twice. (b) the default funnel
+   every contract the device does not own, twice, both with the static
+   pass on (analysis/static, the default as in the JAX package: the
+   static-answer triage, the explorer's prune feed and the walk's module
+   screen; its counters, the modules each walk skipped and the seconds
+   each walk took are printed). (b) the default funnel
    and cap, the walk's solver queries racing the card: per contract
    owned or not and its issue fingerprints, held to the JAX package's
    (tests/test_torch_analyze_vendored_ladder_pinned.json, the same run
@@ -173,10 +177,15 @@ own prepass.
    subprocess at a time: the milestone corpus through `python -m
    mythril_tpu_torch analyze --bin-runtime -f ... -f ... -t 2 -o json`,
    which must exit 0 with both contracts owned, SWC-106 at pc 15 and
-   SWC-110 at pc 0, and each contract alone through `-c` (the same
+   SWC-110 at pc 0, and a third file, CLEAN (the JAX corpusgen's
+   clean_contract(0)), statically answered (no issue, no lane: stderr
+   names it), and each milestone contract alone through `-c` (the same
    issues); gated_kill again under `--device-ownership never` (walked on
    the host, the same issue); origin.sol.o, which the device does not
-   own, through `-f` (exit 0, the JAX pin's issues from the host walk).
+   own, through `-f` (exit 0, the JAX pin's issues from the host walk);
+   `python -m mythril_tpu_torch lint -f ... -o json` on the 13 vendored
+   contracts (no card), its rows but the wall times equal to the JAX
+   `myth lint` rows pinned in tests/test_torch_static_lint_pinned.json.
    Last, SymExecWrapper on gated_kill with no outcome injected: its own
    device prepass on the card must give SWC-106 at pc 15 and launch
    slot_write. Phase 8 runs with the ladder off (a zero cap), as it did
@@ -2364,18 +2373,52 @@ RACE_GATE = ("600035" "63ffffffff16" "602035" "63ffffffff16" "81600110" "8160011
 RACE_GATE_TIMEOUT_MS = 3000
 ANALYZE_SWC = {"gated_kill": ("106", 15, "Unprotected Selfdestruct", "High"),
                "always_assert": ("110", 0, "Exception State", "Medium")}
+#: a provably clean contract (the JAX corpusgen's clean_contract(0)): every
+#: detection module screens off, so analyze answers it statically
+CLEAN = ("clean", "600035" "60e01c" "80" "63c0ffee00" "14" "601a" "57" "630ddba110" "14"
+         "6024" "57" "00" "5b" "6001" "6002" "01" "6000" "55" "00"
+         "5b" "602a" "6000" "52" "6020" "6000" "f3")
+#: the JAX `myth lint` rows of the 13 vendored contracts (no wall times, no
+#: contract names; tests/test_torch_static.py --pin-lint)
+LINT_PIN = ROOT / "tests" / "test_torch_static_lint_pinned.json"
+STATIC_COUNTERS = ("static_summaries", "static_pruned_flips", "static_seeds_dropped")
 
 
-def analyze_cli(*argv):
-    """One `python -m mythril_tpu_torch analyze` on the card, in a
-    subprocess: (exit code, stdout, seconds)."""
+def analyze_cli(*argv, command="analyze", stderr=None):
+    """One `python -m mythril_tpu_torch analyze` (or `command`) on the
+    card, in a subprocess: (exit code, stdout, seconds); its stderr is
+    appended to the list `stderr` where one is given."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mythril_tpu_torch", "analyze", *argv],
+    proc = subprocess.run([sys.executable, "-m", "mythril_tpu_torch", command, *argv],
                           cwd=ROOT, capture_output=True, text=True, timeout=600)
     if proc.returncode not in (0, 1):
-        raise SystemExit(f"analyze {' '.join(argv)} failed ({proc.returncode}):\n"
+        raise SystemExit(f"{command} {' '.join(argv)} failed ({proc.returncode}):\n"
                          f"{proc.stderr[-4000:]}")
+    if stderr is not None:
+        stderr.append(proc.stderr)
     return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def static_counters(explorers):
+    """The explorers' static-pass counters, summed."""
+    return {k: sum(getattr(e.stats, k) for e in explorers) for k in STATIC_COUNTERS}
+
+
+def walk_lines(results):
+    """Per walked contract: its seconds, states and the modules the
+    static screen left out (of the 14)."""
+    from mythril_tpu_torch.analysis.module import ModuleLoader
+
+    every = sorted(type(m).__name__ for m in ModuleLoader().get_detection_modules())
+    out = {}
+    for r in results:
+        if r.get("owned") or r.get("static_answered") or "static_screen" not in r:
+            continue
+        screen = r["static_screen"]
+        out[r["name"]] = {"walk_s": r["wall_s"], "states": r["states"],
+                          "mounted": len(every) if screen is None else len(screen),
+                          "skipped": [] if screen is None else sorted(set(every) - set(screen))}
+    return out
 
 
 def enum_only_solver(pf, **enum_kw):
@@ -2528,6 +2571,9 @@ def vendored_ladder_run(out_path, device=None):
         "walk_s": spent["walk"], "launches": launches, "launches_walk": spent["launches"],
         "replayed": replayed, "not_replayed": not_replayed,
         "walk_not_replayed": walk_not_replayed,
+        "static": static_counters(explorers), "walks": walk_lines(results),
+        "static_answered": sorted(r["name"] for r in results if r.get("static_answered")),
+        "static_prune": args.static_prune, "static_answer": args.static_answer,
         "degraded": resilience.DegradationLog().counts}))
 
 
@@ -2539,22 +2585,27 @@ def analyze_cli_checks(card):
     does not own, through `-f` (walked, the JAX pin's issues)."""
     import tempfile
 
+    err = []
     with tempfile.TemporaryDirectory() as tmp:
         files = []
-        for name, code in MILESTONE:
+        for name, code in MILESTONE + (CLEAN,):
             path = Path(tmp) / name
             path.write_text(code + "\n")
             files += ["-f", str(path)]
-        rc, out, secs = analyze_cli("--bin-runtime", *files, "-t", "2", "-o", "json")
+        rc, out, secs = analyze_cli("--bin-runtime", *files, "-t", "2", "-o", "json",
+                                    stderr=err)
+        answered = f"static-answered (1 of 3, not explored): {Path(tmp) / CLEAN[0]}"
     doc = json.loads(out)
     got = {(Path(i["contract"]).name, i["swc-id"], i["address"], i["title"], i["severity"])
            for i in doc["issues"]}
     want = {(name,) + ANALYZE_SWC[name] for name, _ in MILESTONE}
-    log(f"[analyze cli] the milestone corpus as two -f files: exit {rc}, {secs:.1f} s, "
-        f"issues {sorted(got)}, partial {doc.get('partial', False)} on {card}")
-    if rc != 0 or doc.get("partial") or got != want:
-        raise SystemExit(f"analyze cli: the milestone corpus gave exit {rc}, {sorted(got)}; "
-                         f"want both owned and {sorted(want)}")
+    log(f"[analyze cli] the milestone corpus and CLEAN as three -f files: exit {rc}, "
+        f"{secs:.1f} s, issues {sorted(got)}, partial {doc.get('partial', False)}, "
+        f"stderr {err[0].strip()!r} on {card}")
+    if rc != 0 or doc.get("partial") or got != want or answered not in err[0].splitlines():
+        raise SystemExit(f"analyze cli: the milestone corpus gave exit {rc}, {sorted(got)}, "
+                         f"stderr {err[0][-2000:]!r}; want both owned and {sorted(want)}, "
+                         f"CLEAN statically answered")
     for name, code in MILESTONE:
         rc, out, secs = analyze_cli("--bin-runtime", "-c", code, "-t", "2", "-o", "json")
         issues = [(i["swc-id"], i["address"], i["title"], i["severity"], i["function"])
@@ -2584,6 +2635,21 @@ def analyze_cli_checks(card):
     if rc != 0 or doc.get("partial") or fps != pin[CLI_UNOWNED]:
         raise SystemExit(f"analyze cli: -f {CLI_UNOWNED} gave exit {rc}, {fps}; want the JAX "
                          f"pin's {pin[CLI_UNOWNED]}")
+    # the static layer alone, no card: the JAX `myth lint` rows
+    lint_pin = json.loads(LINT_PIN.read_text())
+    files = [a for path in lint_pin["paths"] for a in ("-f", path)]
+    rc, out, secs = analyze_cli(*files, "-o", "json", command="lint")
+    rows = [{k: v for k, v in row.items() if k not in ("contract", "wall_ms")}
+            for row in json.loads(out)]
+    for row in rows:
+        row["taint"].pop("wall_ms", None)
+    differ = [path for path, got, want in zip(lint_pin["paths"], rows, lint_pin["rows"])
+              if got != want]
+    log(f"[analyze cli] lint on the {len(rows)} vendored contracts: exit {rc}, {secs:.1f} s, "
+        f"{len(rows) - len(differ)} rows equal to the JAX pin, findings "
+        f"{sum(len(r['findings']) for r in rows)}")
+    if rc != 0 or len(rows) != len(lint_pin["rows"]) or differ:
+        raise SystemExit(f"lint: exit {rc}, rows unlike the JAX pin: {differ}")
 
 
 def analyze_pinned_ladder(card):
@@ -2631,6 +2697,16 @@ def analyze_pinned_ladder(card):
         f"ladder_deferred {got['ladder_deferred']}, {got['replayed']} witnesses replayed (walk "
         f"witnesses that do not: {got['walk_not_replayed']}), launches {got['launches']} "
         f"(in the walks {got['launches_walk']}) on {card}")
+    log(f"[analyze a] static pass (static_prune {got['static_prune']}, static_answer "
+        f"{got['static_answer']}): {got['static']} (JAX pin {pin['static']}), statically "
+        f"answered {got['static_answered']} (JAX pin {pin['static_answered']})")
+    for name, w in got["walks"].items():
+        log(f"[analyze a] walk {name}: {w['walk_s']} s, {w['states']} states, "
+            f"{w['mounted']} modules mounted, skipped {w['skipped']}")
+    if not (got["static_prune"] and got["static_answer"]) \
+            or got["static_answered"] != pin["static_answered"]:
+        raise SystemExit(f"analyze (a): the static pass was off or answered "
+                         f"{got['static_answered']} (JAX pin {pin['static_answered']})")
     if mismatched or sorted(pinned) != sorted(n for n, _, _ in got["contracts"]):
         raise SystemExit(f"analyze (a): owned flags or fingerprints differ from the JAX "
                          f"ladder pin: {mismatched}")
@@ -2705,6 +2781,8 @@ def analyze_default(card):
     races = {k: getattr(stats_solver, k) for k in race_keys}
     invalid = querylog.loss_reasons(since=losses).get(querylog.LOSS_WITNESS_INVALID, 0)
     walk_s = spent["walk"]
+    static = static_counters(explorers)
+    answered = sorted(r["name"] for r in results if r.get("static_answered"))
     # the race gate, in a corpus of its own (its lanes and budget would
     # change the 13's exploration), under --device-ownership never, its
     # walk racing the card
@@ -2771,6 +2849,17 @@ def analyze_default(card):
         f"{replayed} witnesses replayed (walk witnesses that do not: {walk_not_replayed}), "
         f"{len(mismatched)} contracts unlike the JAX ladder pin, launches {launches} (in the "
         f"walks {spent['launches']}) on {card}")
+    log(f"[analyze b] static pass (static_prune {args.static_prune}, static_answer "
+        f"{args.static_answer}): {static}, statically answered {len(answered)} of {len(rows)} "
+        f"{answered}")
+    walks = walk_lines(results)
+    for name, w in walks.items():
+        log(f"[analyze b] walk {name}: {w['walk_s']} s, {w['states']} states, "
+            f"{w['mounted']} modules mounted, skipped {w['skipped']}")
+    if not (args.static_prune and args.static_answer) or not static["static_summaries"] \
+            or answered != pin["static_answered"]:
+        raise SystemExit(f"analyze (b): the static pass did not run as the JAX default: "
+                         f"{static}, answered {answered}")
     if mismatched or sorted(pinned) != sorted(r["name"] for r in results):
         raise SystemExit(f"analyze (b): owned flags or fingerprints differ from the JAX "
                          f"ladder pin: {mismatched}")
@@ -2804,7 +2893,8 @@ def analyze_default(card):
     return dict(launches=launches, launches_walk=spent["launches"],
                 launches_walk_gate=spent_gate["launches"], owned=owned,
                 host_sat=stats.get("host_sat"), ladder_deferred=deferred, wall=wall,
-                walk_s=walk_s, races=races, gate_races=gate_races, states=states)
+                walk_s=walk_s, races=races, gate_races=gate_races, states=states,
+                static=static, walks=walks)
 
 
 def wrapper_prepass(card):

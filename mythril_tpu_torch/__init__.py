@@ -21,7 +21,11 @@ caller passes `device="cpu"`:
   analyze` (the device prepass, the ownership gate, and the host walk,
   `analysis.symbolic.SymExecWrapper` + `analysis.security.fire_lasers`,
   of every contract the device does not own, its solver queries racing
-  the card);
+  the card), with the static pass on by default (`analysis.static`:
+  the static-answer triage, the explorer's prune feed, the walk's
+  module screen);
+- `python -m mythril_tpu_torch lint` (`analysis.static.summary_for`
+  alone, host only);
 - `ops.keccak.keccak256`.
 
 The hand-written kernels, built with nvcc at first use, are keccak-f[1600]

@@ -22,8 +22,13 @@ Where the port differs, and how it says so:
   other unported options do;
 - the pooled walk (`processes > 1`) raises; the overlapped prepass (the
   walk beside the exploration), the verdict store (and with it the
-  selector masks), and the static and routing triage are not ported and
-  have no switch here.
+  selector masks), the corpus link pass and the routing triage are not
+  ported and have no switch here;
+- the static-answer triage (`_static_triage`, on unless
+  `args.static_answer` or `args.static_prune` is off) is the JAX one,
+  but a static pass that raises on a contract is recorded in the
+  DegradationLog (`static-prepass-failed`), not only logged: the
+  contract takes the full path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -254,6 +259,78 @@ def _skipped_result(name: str, reason: str) -> Dict:
     }
 
 
+def _static_answer_result(name: str, summary, wall_s: float) -> Dict:
+    """The result slot for a statically-answered contract: the
+    semantic screen (analysis/static taint + sink predicates) proved
+    that NO detection module can fire, so the empty issue set IS the
+    analysis: no device wave, no host walk, no solver. Same shape as
+    an analyzed result so report builders need no special case; the
+    `static_answered` flag marks it (`analyze` names it on stderr)."""
+    return {
+        "name": name,
+        "issues": [],
+        "issue_objects": [],
+        "states": 0,
+        "device_prepass": None,
+        "phases": {},
+        "precovered_skips": 0,
+        "wall_s": round(wall_s, 6),
+        "owned": False,
+        "error": None,
+        "static_answered": True,
+        "static_analysis": {
+            "code_hash": summary.code_hash,
+            "static_answerable": True,
+            "modules_applicable": 0,
+            "wall_ms": summary.wall_ms,
+        },
+    }
+
+
+def _static_triage(contracts: List[Tuple[str, str, str]]) -> Dict[int, Dict]:
+    """{index: static-answer result} for every corpus row the
+    semantic screen settles outright. Runs BEFORE the device prepass
+    so answered contracts never occupy a lane; a per-contract failure
+    keeps that contract on the full path and is recorded
+    (`static-prepass-failed`)."""
+    from mythril_tpu_torch.analysis.static import summary_for
+    from mythril_tpu_torch.support.resilience import (
+        DegradationLog,
+        DegradationReason,
+    )
+
+    out: Dict[int, Dict] = {}
+    for i, (code, creation_code, name) in enumerate(contracts):
+        if creation_code:
+            # a deploying row executes creation code too: the
+            # runtime-only proof does not cover it
+            continue
+        norm = code[2:] if code.startswith("0x") else code
+        if len(norm) < 4:
+            continue
+        t0 = time.perf_counter()
+        try:
+            summary = summary_for(norm)
+            if summary.static_answerable:
+                out[i] = _static_answer_result(
+                    name, summary, time.perf_counter() - t0
+                )
+        except Exception as why:
+            DegradationLog().record(
+                DegradationReason.STATIC_PREPASS_FAILED,
+                site="corpus-triage",
+                detail=f"{type(why).__name__}: {why}; full path",
+                contract=name,
+            )
+    if out:
+        log.info(
+            "Static triage answered %d/%d contract(s) without dispatch",
+            len(out),
+            len(contracts),
+        )
+    return out
+
+
 def _analyze_one(
     code: str,
     creation_code: str,
@@ -274,8 +351,9 @@ def _analyze_one(
     """The host walk of one contract (SymExecWrapper + fire_lasers) on
     `device`, with the corpus prepass's outcome injected. Returns the
     JAX package's result keys (issues, states, device_prepass, phases,
-    precovered_skips, wall_s, error) and `issue_objects`, the `Issue`s
-    the report is built from. A walk that raises is recorded in `error`
+    precovered_skips, wall_s, error), `issue_objects`, the `Issue`s
+    the report is built from, and `static_screen`, the modules the
+    static screen mounted. A walk that raises is recorded in `error`
     with its traceback, and no issues."""
     from mythril_tpu_torch.analysis.security import fire_lasers
     from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
@@ -320,6 +398,11 @@ def _analyze_one(
             "precovered_skips": sym.laser.device_precovered_skips,
             "wall_s": round(time.perf_counter() - t_start, 3),
             "error": None,
+            # port-only: the modules the static screen mounted (None:
+            # all, static pruning off or failed)
+            "static_screen": (
+                sorted(sym.static_screen) if sym.static_screen is not None else None
+            ),
         }
     except Exception:
         return {
@@ -368,6 +451,7 @@ def analyze_corpus(
     so that a run does not depend on the wall clock; `device_budget_s`
     then still applies). `processes` above 1 (the JAX package's pooled
     walk) raises: the port walks in this process."""
+    from mythril_tpu_torch.analysis.static import static_answer_enabled
     from mythril_tpu_torch.support import resilience
 
     if processes is not None and processes > 1:
@@ -381,8 +465,16 @@ def analyze_corpus(
         else resilience.Deadline(deadline_s, label="corpus")
     )
     own = _ownership_enabled()
+    # the static-answer triage tier: contracts the semantic screen
+    # settles are answered HERE (microseconds) and excluded from the
+    # device prepass, which sees their rows as non-runnable so the
+    # index mapping every consumer shares stays intact
+    static_answers = _static_triage(contracts) if static_answer_enabled() else {}
+    prepass_rows = list(contracts)
+    for i in static_answers:
+        prepass_rows[i] = ("", contracts[i][1], contracts[i][2])
     prepass = corpus_device_prepass(
-        contracts,
+        prepass_rows,
         budget_s=device_budget_s,
         address=address,
         transaction_count=transaction_count,
@@ -397,6 +489,11 @@ def analyze_corpus(
     results = []
     halt_reason = None
     for i, (code, creation_code, name) in enumerate(contracts):
+        if i in static_answers:
+            # statically answered: the empty issue set is the analysis;
+            # it even survives a deadline halt (it costs microseconds)
+            results.append(static_answers[i])
+            continue
         outcome = prepass.get(i)
         if own and _outcome_owns(outcome):
             # synthesis is cheap (no walk, no solver), so an owned

@@ -36,13 +36,22 @@ def fire_lasers(statespace, white_list: Optional[List[str]] = None) -> List[Issu
     """Run POST modules over the statespace and collect all issues,
     merging in the concrete witnesses the device prepass banked
     (analysis/prepass.py) for locations the host walk did not reach.
-    The POST modules' queries race on the wrapper's `device`."""
+    The static pre-screen (analysis/static, computed by SymExecWrapper)
+    filters modules whose opcode signature cannot fire on the analyzed
+    code: they neither mounted hooks nor run their POST pass. White-list
+    validation still happens first, so an invalid -m name errors
+    regardless of the screen. The POST modules' queries race on the
+    wrapper's `device`."""
     log.info("Starting analysis")
     issues: List[Issue] = []
+    screen = getattr(statespace, "static_screen", None)
     with solver_device(getattr(statespace, "device", None)):
         for module in ModuleLoader().get_detection_modules(
             entry_point=EntryPoint.POST, white_list=white_list
         ):
+            if screen is not None and type(module).__name__ not in screen:
+                log.debug("Static pre-screen skipped %s", module.name)
+                continue
             log.info("Executing %s", module.name)
             issues += module.execute(statespace)
     issues += retrieve_callback_issues(white_list)

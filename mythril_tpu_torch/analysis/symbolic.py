@@ -9,16 +9,16 @@ the statespace's CALL operations for POST modules.
 It differs from the JAX package in three places. The wrapper takes a
 `device` (None: the card): the device prepass explores there, and every
 solver query of the walk races there (`support.model.solver_device`).
-The static pre-screen (analysis/static) is not ported, so
-`args.static_prune` on raises; off, every module mounts, as in the JAX
-package with --no-static-prune. A prepass that raises propagates: the
-walk does not quietly go on without the card.
+A static pre-screen (analysis/static) that raises mounts every module,
+as in the JAX package, but is recorded in the DegradationLog
+(`static-prepass-failed`) rather than logged at DEBUG. A prepass that
+raises propagates: the walk does not quietly go on without the card.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, Optional, Union
+from typing import List, Optional, Set, Union
 
 from mythril_tpu_torch.analysis.module import (
     EntryPoint,
@@ -51,6 +51,7 @@ from mythril_tpu_torch.laser.plugin.plugins import (
 )
 from mythril_tpu_torch.laser.smt import BitVec, symbol_factory
 from mythril_tpu_torch.support.model import solver_device
+from mythril_tpu_torch.support.resilience import DegradationLog, DegradationReason
 from mythril_tpu_torch.support.support_args import args
 
 log = logging.getLogger(__name__)
@@ -79,6 +80,17 @@ class DeviceExplorationInfo(ExecutionInfo):
 
     def as_dict(self):
         return {"device_symbolic_prepass": self.stats}
+
+
+class StaticAnalysisInfo(ExecutionInfo):
+    """Static-prepass counters (analysis/static), surfaced in the
+    jsonv2 report meta: CFG/prune stats plus the detector screen."""
+
+    def __init__(self, stats: dict) -> None:
+        self.stats = stats
+
+    def as_dict(self):
+        return {"static_analysis": self.stats}
 
 
 def _as_address_term(address: Union[int, str, BitVec]) -> BitVec:
@@ -112,11 +124,6 @@ class SymExecWrapper:
         prepass_outcome: Optional[dict] = None,
         device=None,
     ):
-        if getattr(args, "static_prune", False):
-            raise NotImplementedError(
-                "the static pre-analysis (analysis/static) is not ported: "
-                "run with args.static_prune off"
-            )
         # fresh per-contract solver session: the blast store shares
         # structure within one analysis but would tax the next contract
         from mythril_tpu_torch.analysis.prepass import reset_proven
@@ -152,6 +159,12 @@ class SymExecWrapper:
         if loop_bound is not None:
             self.laser.extend_strategy(BoundedLoopsStrategy, loop_bound)
 
+        # the static prepass (analysis/static): CFG + dataflow once
+        # per code hash, detector pre-screen BEFORE any hook mounts
+        self.static_summary = None
+        self.static_screen: Optional[Set[str]] = None
+        self._static_prescreen(contract, deploys)
+
         self._mount_plugins(disable_dependency_pruning)
         if run_analysis_modules:
             self._mount_detectors(modules)
@@ -185,6 +198,73 @@ class SymExecWrapper:
             self.nodes = self.laser.nodes
             self.edges = self.laser.edges
             self.calls = list(self._digest_calls())
+
+    # -- static prepass -------------------------------------------------
+    def _static_prescreen(self, contract, deploys: bool) -> None:
+        """Run the host-side static pass (cached by code hash) and
+        derive the detector screen: modules whose opcode signature
+        cannot fire on this code are never mounted and never run their
+        POST pass (analysis/static/screen.py).
+
+        Screening is skipped when on-chain loading is active (a
+        DELEGATECALL into foreign code executes opcodes this
+        contract's bytecode does not contain) and when the user
+        passed --no-static-prune."""
+        if not getattr(args, "static_prune", True):
+            return
+        if self.dynloader is not None and getattr(
+            self.dynloader, "active", False
+        ):
+            return
+        runtime = getattr(contract, "code", "") or ""
+        if len(runtime) < 4:
+            return
+        try:
+            from mythril_tpu_torch.analysis.static import (
+                screen_modules,
+                summary_for,
+            )
+
+            self.static_summary = summary_for(runtime)
+            if deploys:
+                # creation code executes under the same hooks; its
+                # linear sweep over-approximates (embedded runtime
+                # decodes as instructions), which only ADDS features,
+                # conservative in the right direction. The semantic
+                # sink predicates only hold for the runtime body, so a
+                # deploying analysis screens on opcodes alone.
+                features = set(self.static_summary.features)
+                features |= summary_for(
+                    getattr(contract, "creation_code", "") or ""
+                ).features
+                applicable, skipped = screen_modules(features)
+            else:
+                # runtime-only: the semantic screen (opcode signature
+                # AND the taint/value-set sink predicate) decides
+                applicable, skipped = (
+                    self.static_summary.applicable_modules()
+                )
+            self.static_screen = set(applicable)
+            stats = self.static_summary.stats()
+            stats["modules_skipped"] = sorted(skipped)
+            self.laser.execution_info.append(StaticAnalysisInfo(stats))
+            if skipped:
+                log.info(
+                    "Static pre-screen: %d/%d detection modules "
+                    "applicable (skipped: %s)",
+                    len(applicable),
+                    len(applicable) + len(skipped),
+                    ", ".join(sorted(skipped)),
+                )
+        except Exception as why:
+            self.static_summary = None
+            self.static_screen = None
+            DegradationLog().record(
+                DegradationReason.STATIC_PREPASS_FAILED,
+                site="walk",
+                detail=f"{type(why).__name__}: {why}; all modules mount",
+                contract=getattr(contract, "name", "") or "",
+            )
 
     # -- device symbolic prepass ----------------------------------------
     def _device_prepass(self, contract, address: BitVec, execution_timeout):
@@ -320,6 +400,15 @@ class SymExecWrapper:
         detectors = ModuleLoader().get_detection_modules(
             EntryPoint.CALLBACK, modules
         )
+        if self.static_screen is not None:
+            # the pre-screen: a module whose opcode signature cannot
+            # fire on this code never mounts its hooks (the svm pays
+            # hook dispatch per executed instruction)
+            detectors = [
+                d
+                for d in detectors
+                if type(d).__name__ in self.static_screen
+            ]
         for phase in ("pre", "post"):
             self.laser.register_hooks(
                 hook_type=phase,

@@ -1,5 +1,6 @@
 """`python -m mythril_tpu_torch analyze`: runtime bytecode in, the JAX
-package's `Report` out.
+package's `Report` out; `python -m mythril_tpu_torch lint`: the static
+layer alone.
 
 A counterpart of the JAX package's `myth analyze` (interfaces/cli.py)
 with the flags of its corpus path: the bytecode (`-c`, or `-f` once per
@@ -18,7 +19,16 @@ exits with 1.
 
 `--device cuda` (the default) runs on the card and raises where there is
 none; `--device cpu` runs the plain PyTorch versions of the kernels and
-keeps every solver race on the CPU.
+keeps every solver race on the CPU. The static pass (analysis/static)
+runs on every `analyze`, as in the JAX package: it answers contracts no
+detection module can fire on, prunes the exploration and screens the
+walk's modules; `--no-static-prune` turns all of it off and
+`--no-static-answer` the answering alone.
+
+`lint` runs the static pass and nothing else (CFG and prune statistics,
+the detector screen and the static findings, as text or json), and
+never touches the card. `--fail-on CHECK` exits 1 when the check fires
+on any contract, 2 when the check is unknown.
 """
 
 from __future__ import annotations
@@ -31,6 +41,23 @@ from typing import List, Tuple
 
 ANALYZE_LIST = ("analyze", "a")
 OUTFORMS = ("text", "markdown", "json", "jsonv2")
+LINT_OUTFORMS = ("text", "json", "jsonv2")
+
+
+def _add_code_inputs(parser: argparse.ArgumentParser, purpose: str) -> None:
+    parser.add_argument(
+        "-c", "--code", metavar="BYTECODE",
+        help='hex-encoded bytecode string ("6060604052...")',
+    )
+    parser.add_argument(
+        "-f", "--codefile", metavar="BYTECODEFILE", action="append",
+        type=argparse.FileType("r"),
+        help="file containing hex-encoded bytecode; repeat for a corpus",
+    )
+    parser.add_argument(
+        "--bin-runtime", action="store_true",
+        help="consider the input bytecode as runtime code" + purpose,
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,19 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     analyze = commands.add_parser(
         "analyze", aliases=["a"], help="analyze runtime bytecode"
     )
-    analyze.add_argument(
-        "-c", "--code", metavar="BYTECODE",
-        help='hex-encoded bytecode string ("6060604052...")',
-    )
-    analyze.add_argument(
-        "-f", "--codefile", metavar="BYTECODEFILE", action="append",
-        type=argparse.FileType("r"),
-        help="file containing hex-encoded bytecode; repeat for a corpus",
-    )
-    analyze.add_argument(
-        "--bin-runtime", action="store_true",
-        help="consider the input bytecode as runtime code (required: the "
-        "corpus prepass explores runtime code)",
+    _add_code_inputs(
+        analyze,
+        " (required: the corpus prepass explores runtime code)",
     )
     analyze.add_argument(
         "-m", "--modules", metavar="MODULES",
@@ -133,9 +150,44 @@ def build_parser() -> argparse.ArgumentParser:
         "as in the JAX package)",
     )
     analyze.add_argument(
+        "--no-static-prune", action="store_true",
+        help="Disable the static bytecode prepass (CFG recovery + constant "
+        "dataflow): the static-answer triage, detection-module "
+        "pre-screening, dispatcher-seed masking, and flip-frontier pruning "
+        "all switch off (the differential baseline for a suspected wrong "
+        "prune)",
+    )
+    analyze.add_argument(
+        "--no-static-answer", action="store_true",
+        help="keep the static prepass but disable ONLY the static-answer "
+        "triage tier: provably-clean contracts go through the full "
+        "exploration and walk anyway",
+    )
+    analyze.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="run on the card (cuda, the default) or the plain PyTorch "
         "versions on the CPU",
+    )
+    lint = commands.add_parser(
+        "lint",
+        help="Static bytecode analysis only: CFG recovery, constant "
+        "dataflow, dead-code/dead-branch findings, and the detector "
+        "pre-screen (host work, no card)",
+    )
+    _add_code_inputs(lint, " (without it, the bytecode is creation code)")
+    lint.add_argument(
+        "-o", "--outform", choices=LINT_OUTFORMS, default="text",
+        metavar="<text/json/jsonv2>", help="lint output format",
+    )
+    lint.add_argument(
+        "--fail-on", action="append", metavar="CHECK", default=None,
+        help="exit nonzero when the named lint check fires on any contract "
+        "(repeatable), a CI gate. Checks: unreachable-code, "
+        "invalid-jump-target, stack-underflow, dead-branch, inert-function, "
+        "tainted-jump-target, tainted-delegatecall-target, "
+        "tx-origin-as-auth, unprotected-selfdestruct, "
+        "delegatecall-to-upgradeable-target, proxy-storage-collision, "
+        "tainted-cross-contract-call-arg, untrusted-return-data-in-guard",
     )
     return parser
 
@@ -233,6 +285,8 @@ def run_analyze(args) -> int:
         flags.sprint_cap_s = args.sprint_cap_s
     flags.call_depth_limit = args.call_depth_limit
     flags.iprof = args.enable_iprof
+    flags.static_prune = not args.no_static_prune
+    flags.static_answer = not args.no_static_answer
     StartTime()
     contracts = [EVMContract(code=code, name=name) for name, code in codes]
     marker = resilience.DegradationLog().marker()
@@ -274,6 +328,11 @@ def run_analyze(args) -> int:
         print(render())
     for error in errors:
         print(error, file=sys.stderr)
+    answered = [r["name"] for r in results if r.get("static_answered")]
+    if answered:
+        # answered by the static screen alone: no lane, no walk
+        print(f"static-answered ({len(answered)} of {len(results)}, not explored): "
+              + ", ".join(answered), file=sys.stderr)
     # a degradation (a failed race launch among them) shows in every
     # output form, not only in the json reports' `degradation` field
     for reason, count in sorted(resilience.DegradationLog().counts_since(marker).items()):
@@ -281,9 +340,100 @@ def run_analyze(args) -> int:
     return 1 if errors else 0
 
 
+def run_lint(args) -> int:
+    """The static layer alone: per contract, CFG and prune statistics
+    plus the static findings (the JAX `myth lint` rows, `schema_version`
+    pins the payload). Never touches the card."""
+    from mythril_tpu_torch.analysis.static import LINT_CHECKS, summary_for
+
+    fail_on = set(args.fail_on or [])
+    unknown_checks = fail_on - LINT_CHECKS
+    if unknown_checks:
+        exit_with_error(
+            args.outform,
+            "unknown --fail-on check(s): {} (known: {})".format(
+                ", ".join(sorted(unknown_checks)), ", ".join(sorted(LINT_CHECKS))
+            ),
+            exit_code=2,
+        )
+    codes = load_codes(args)
+    if not codes:
+        exit_with_error(
+            args.outform,
+            "No input bytecode. Please provide EVM bytecode via -c BYTECODE "
+            "or -f BYTECODE_FILE",
+        )
+    rows = []
+    for name, code in codes:
+        try:
+            summary = summary_for(code)
+        except Exception as why:
+            exit_with_error(
+                args.outform, f"static analysis failed for {name}: {why}", exit_code=1
+            )
+        rows.append(summary.lint_dict(name=name))
+    fired = sorted(
+        {
+            finding["check"]
+            for row in rows
+            for finding in row["findings"]
+            if finding["check"] in fail_on
+        }
+    )
+    if args.outform in ("json", "jsonv2"):
+        print(json.dumps(rows, sort_keys=True))
+        return 1 if fired else 0
+    for row in rows:
+        print(lint_text(row))
+    if fired:
+        print("lint: --fail-on check(s) fired: {}".format(", ".join(fired)))
+        return 1
+    return 0
+
+
+def lint_text(row: dict) -> str:
+    """One contract's lint row as the JAX `myth lint` prints it."""
+    lines = [
+        f"Static analysis: {row['contract']} ({row['code_hash']})",
+        "  blocks: {blocks} ({reachable_blocks} reachable, {dead_blocks} dead), "
+        "instructions: {instructions} ({dead_instructions} dead)".format(**row),
+        "  jumps: {resolved_jumps} resolved / {unresolved_jumps} unresolved / "
+        "{invalid_jumps} invalid; dead branch directions: "
+        "{dead_directions}".format(**row),
+        "  selectors: {selectors} ({dead_selectors} statically prunable); "
+        "prune rate: {prune_rate}".format(**row),
+    ]
+    skipped = row["modules_skipped"]
+    lines.append(
+        "  detector screen: {} applicable, {} skipped{}".format(
+            row["modules_applicable"],
+            len(skipped),
+            " ({})".format(", ".join(skipped)) if skipped else "",
+        )
+    )
+    taint = row.get("taint") or {}
+    if taint and not taint.get("incomplete"):
+        lines.append(
+            "  taint: density {density}, {n_calls} resolved call target(s), "
+            "{n_fp} function fingerprint(s){answer}".format(
+                density=taint.get("density"),
+                n_calls=row.get("resolved_call_target_count", 0),
+                n_fp=row.get("fingerprint_count", 0),
+                answer="; statically answerable" if row.get("static_answerable") else "",
+            )
+        )
+    if row["findings"]:
+        lines.append("  findings:")
+        lines.extend("    - [{check}] {detail}".format(**f) for f in row["findings"])
+    lines.append("  wall: {wall_ms} ms".format(**row))
+    return "\n".join(lines)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.command == "lint":
+        return run_lint(args)
     if args.command not in ANALYZE_LIST:
         parser.print_help()
         return 2

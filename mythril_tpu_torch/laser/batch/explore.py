@@ -47,8 +47,11 @@ counter hash here, threefry there). What changes:
   under `args.sprint_cap_s`) is the JAX one; the survivors its cap
   defers are counted (`ladder_deferred`), and a zero cap defers them
   all;
-- not ported, and refused rather than skipped: static pruning
-  (`args.static_prune`, `analysis/static`), kernel specialization and
+- the static pass (`analysis/static`, on unless `args.static_prune` is
+  off) prunes the flip frontier and the dispatcher seeds as in the JAX
+  package; a contract whose pass raises explores unpruned and is
+  recorded (`static-prepass-failed`, counted in `static_failed`);
+- not ported, and refused rather than skipped: kernel specialization and
   blockjit (`specialize=True`), the multi-device mesh (`n_devices > 1`,
   `devices` of more than one card). Also left out: the metrics
   registry (`publish_explore_stats`, `solverstats.record_query`), the
@@ -58,6 +61,7 @@ counter hash here, threefry there). What changes:
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import random
@@ -992,9 +996,12 @@ class DeviceCorpusExplorer:
         #: verdict-store incremental masks (store/diff.py): {track
         #: index: (frozenset of unchanged selector bytes, frozenset of
         #: their (jumpi_pc, taken) entry directions)}. They ride the
-        #: static feeds, so without the static layer they stay inert.
+        #: static feeds, so with static pruning off they stay inert.
         self.selector_masks = dict(selector_masks or {})
-        self._attach_static_feeds()
+        #: contracts whose static pass raised: they explore unpruned,
+        #: each recorded as `static-prepass-failed` (port-only, beside
+        #: `ladder_deferred`: ExploreStats keeps the JAX package's keys)
+        self.static_failed = self._attach_static_feeds()
         self.lanes_per_contract = lanes_per_contract
         self.calldata_len = calldata_len
         self.waves = waves
@@ -1094,17 +1101,50 @@ class DeviceCorpusExplorer:
         )
 
     # -- static pre-analysis -------------------------------------------
-    def _attach_static_feeds(self) -> None:
-        """The static pass (analysis/static) is not ported: with
-        `args.static_prune` on, refuse rather than explore unpruned
-        under a flag that promises pruning."""
-        from mythril_tpu_torch.support.support_args import args as _flags
+    def _attach_static_feeds(self) -> int:
+        """Run the host-side static pass once per contract (cached by
+        code hash) BEFORE any lane is seeded: statically-dead branch
+        directions never enter the flip frontier and inert functions
+        never get dispatcher seeds. A failing pass is not fatal (the
+        contract explores unpruned, as in the JAX package) but it is not
+        silent either: it is recorded in the DegradationLog as
+        `static-prepass-failed`. Returns the number of failed
+        contracts."""
+        from mythril_tpu_torch.analysis.static import static_prune_enabled
 
-        if getattr(_flags, "static_prune", False):
-            raise NotImplementedError(
-                "static pruning (analysis/static) is not ported: set "
-                "args.static_prune = False"
-            )
+        if not static_prune_enabled():
+            return 0
+        from mythril_tpu_torch.analysis.static import summary_for
+
+        failed = 0
+        for ti, track in enumerate(self.tracks):
+            try:
+                track.static = summary_for(track.code_hex)
+                mask = self.selector_masks.get(ti)
+                if mask is not None:
+                    # wrap the summary so the unchanged-fork selectors
+                    # read as dead to seeding AND to the flip frontier
+                    from mythril_tpu_torch.store.diff import SelectorMaskFeed
+
+                    sels, directions = mask
+                    track.static = SelectorMaskFeed(
+                        track.static, sels, directions
+                    )
+                track.static_dead = frozenset(
+                    track.static.prune_directions()
+                )
+            except Exception as why:
+                failed += 1
+                resilience.DegradationLog().record(
+                    resilience.DegradationReason.STATIC_PREPASS_FAILED,
+                    site="explorer",
+                    detail=f"{type(why).__name__}: {why}; explores unpruned",
+                    contract="sha256 "
+                    + hashlib.sha256(self.codes[ti]).hexdigest()[:16],
+                )
+                track.static = None
+                track.static_dead = frozenset()
+        return failed
 
     # -- supervision ---------------------------------------------------
     def _stop_requested(self) -> bool:

@@ -339,8 +339,8 @@ def _race_cone(
     reconstruction gate before it is believed, so racing a relevant
     subset is sound — an under-constrained witness just fails
     validation and the CDCL proceeds. Seeded from the last conjuncts
-    (the freshly-appended branch/property condition), grown by shared
-    variables breadth-first, capped."""
+    that carry a variable (the freshly-appended branch/property
+    condition), grown by shared variables breadth-first, capped."""
     if len(lowered) <= max_constraints:
         return lowered
 
@@ -369,8 +369,14 @@ def _race_cone(
         return out
 
     per = [vars_of(c) for c in lowered]
-    active = set().union(*per[-2:]) if len(per) >= 2 else set(per[-1])
-    chosen = set(range(len(lowered) - 2, len(lowered)))
+    # the seed: the last two conjuncts that carry a variable (lowering
+    # leaves constant `true` conjuncts at a query's tail, and a cone
+    # seeded on them holds no variable, so the race would search
+    # nothing; the JAX package seeds on the last two whatever they are)
+    seeds = [i for i in range(len(lowered) - 1, -1, -1) if per[i]][:2] or [
+        len(lowered) - 2, len(lowered) - 1]
+    active = set().union(*(per[i] for i in seeds))
+    chosen = set(seeds)
     # breadth-first rounds: constraints sharing a live var join the
     # cone and contribute their vars; stop at the cap — proximity to
     # the seed is the relevance order

@@ -3,9 +3,9 @@
 The port's copy of `SelectorMaskFeed` from the JAX package's
 store/diff.py: a static summary wrapper that masks a fork's unchanged
 selectors like statically-dead ones. The explorer takes
-`selector_masks`; without the static layer (not ported) no summary
-exists to wrap, so the masks stay inert, as in the JAX package with
-static pruning off.
+`selector_masks` and wraps each masked contract's static summary; with
+static pruning off no summary exists to wrap, so the masks stay inert,
+as in the JAX package.
 """
 
 from __future__ import annotations

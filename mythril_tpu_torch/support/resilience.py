@@ -90,6 +90,10 @@ class DegradationReason:
     INTERRUPTED = "interrupted"
     CONTRACT_SKIPPED = "contract-skipped"
     PREPASS_FAILED = "prepass-failed"
+    #: the static pass (analysis/static) raised on a contract: it
+    #: explores unpruned, every detection module mounts and the triage
+    #: takes the full path, so the report is the unpruned analysis's
+    STATIC_PREPASS_FAILED = "static-prepass-failed"
     #: a poison job — implicated in repeated wave faults (in-process
     #: strike counter fed by wave-fault attribution plus a
     #: crash-implication strike at journal recovery) — was isolated to

@@ -5,10 +5,11 @@ parity: mythril/support/support_args.py:1-16): a singleton `args` read
 by deep layers without explicit plumbing. It holds the flags the port's
 layers read so far; each keeps the JAX package's name and meaning.
 
-`static_prune` defaults to False here: the static pre-analysis
-(analysis/static) is not ported, and the explorer raises if it is
-asked for. `specialize` is False for the same reason (no specialized
-kernels).
+`static_prune` and `static_answer` default to True, as in the JAX
+package: `analyze` runs the static pass (analysis/static) unless the
+caller passes --no-static-prune. `specialize` defaults to False: kernel
+specialization is not ported, and the explorer raises if it is asked
+for.
 """
 
 from __future__ import annotations
@@ -45,8 +46,18 @@ class Args(object, metaclass=Singleton):
         # (CLI --sprint-cap-s.)
         self.sprint_cap_s = 5.0
         # Static pre-analysis (analysis/static, CLI --no-static-prune):
-        # not ported; True makes the explorer raise NotImplementedError.
-        self.static_prune = False
+        # CFG recovery + constant dataflow once per code hash, feeding
+        # the detector pre-screen, the dispatcher-seed mask, and the
+        # flip-frontier prune. On by default; the flag exists so a
+        # suspected wrong prune is one switch away from a differential.
+        self.static_prune = True
+        # Static-answer triage tier (analysis/static taint + screen):
+        # a contract whose semantic screen proves NO detection module
+        # can fire is answered with an empty issue set at corpus
+        # dispatch: no device, no walk. Rides the static_prune flag
+        # (off under --no-static-prune) plus this knob (CLI
+        # --no-static-answer).
+        self.static_answer = True
         # Kernel specialization (laser/batch/specialize.py): not ported;
         # True makes the explorer raise NotImplementedError.
         self.specialize = False

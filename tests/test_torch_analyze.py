@@ -71,6 +71,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_jax_memory import release_jax_executables  # noqa: F401
 
 from mythril_tpu_torch.analysis import corpus as port_corpus
 from mythril_tpu_torch.analysis import evidence as port_evidence
@@ -133,16 +134,17 @@ def enum_only_solver(pf, **kw):
 
 @pytest.fixture(scope="module", autouse=True)
 def ladder_off():
-    """The port's host ladder off and deterministic solving on for the
-    module, as the pins were made (the walk's queries then race
-    nothing)."""
+    """The port's host ladder off, deterministic solving on and static
+    pruning off for the module, as the pins were made (the walk's
+    queries then race nothing)."""
     from mythril_tpu_torch.support.support_args import args
 
-    saved = args.sprint_cap_s, args.deterministic_solving
+    saved = args.sprint_cap_s, args.deterministic_solving, args.static_prune
     args.sprint_cap_s = 0.0
     args.deterministic_solving = True
+    args.static_prune = False
     yield
-    args.sprint_cap_s, args.deterministic_solving = saved
+    args.sprint_cap_s, args.deterministic_solving, args.static_prune = saved
 
 
 @pytest.fixture(scope="module")
@@ -452,7 +454,10 @@ def test_cli_exits_1_on_a_contract_it_does_not_own(tmp_path, capsys, monkeypatch
     contract unanalyzed, and then the command exits 1."""
     from mythril_tpu_torch.analysis import symbolic as port_symbolic
     from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.support.support_args import args
 
+    for flag in ("static_prune", "static_answer"):  # the CLI sets them
+        monkeypatch.setattr(args, flag, getattr(args, flag))
     a, b = tmp_path / "assert.hex", tmp_path / "degrader.hex"
     a.write_text(ALWAYS_ASSERT + "\n")
     b.write_text(DEGRADER + "\n")
@@ -599,7 +604,10 @@ def pin_vendored_ladder() -> None:
     on, a fresh solver session and memo cache, and the enumeration-only
     device solver (the JAX device SLS at this geometry had not finished
     after 40 CPU minutes); written to chip_smoke.py's VENDORED_LADDER_PIN
-    with the run's host_sat."""
+    with the run's host_sat. Static pruning and the static-answer triage
+    are on, the JAX package's defaults (`_static_triage` first, its
+    answered rows kept out of the prepass, as its analyze_corpus does),
+    and the pin records the explorer's static counters."""
     import time
 
     import conftest  # noqa: F401
@@ -620,6 +628,9 @@ def pin_vendored_ladder() -> None:
         mp.setattr(jax_explore.DeviceCorpusExplorer, "_sprint_cap_s",
                    lambda self: VENDORED_LADDER_CAP_S)
         mp.setattr(jax_args, "deterministic_solving", True)
+        # the JAX defaults (the suite's conftest turns the answer tier off)
+        mp.setattr(jax_args, "static_prune", True)
+        mp.setattr(jax_args, "static_answer", True)
         jax_solver.reset_blast_session()
         jax_model.clear_cache()
         base = jax_explore.DeviceCorpusExplorer
@@ -630,14 +641,19 @@ def pin_vendored_ladder() -> None:
 
         mp.setattr(jax_explore, "DeviceCorpusExplorer", Capped)
         mp.setattr(jax_explore, "device_solve_batch", enum_only_solver(jax_portfolio))
+        answers = jax_corpus._static_triage(rows)
+        prepass_rows = [("", c, n) if i in answers else (code, c, n)
+                        for i, (code, c, n) in enumerate(rows)]
         outcomes = jax_corpus.corpus_device_prepass(
-            rows, address=ADDR, transaction_count=2, execution_timeout=86400,
+            prepass_rows, address=ADDR, transaction_count=2, execution_timeout=86400,
             ownership=True)
         wall = time.perf_counter() - t0
         contracts = []
         for i, (code, _, name) in enumerate(rows):
             owned = jax_corpus._outcome_owns(outcomes.get(i))
-            if owned:
+            if i in answers:
+                res = answers[i]
+            elif owned:
                 res = jax_corpus._owned_result(code, "", name, outcomes[i], ADDR)
             else:
                 t1 = time.perf_counter()
@@ -656,8 +672,12 @@ def pin_vendored_ladder() -> None:
                         "transaction_count": 2, "ladder": "on",
                         "sprint_cap_s": VENDORED_LADDER_CAP_S,
                         "deterministic_solving": True, "budget_s": None,
-                        "solver": "enumeration only", "host_walk": "bfs, JAX defaults"},
+                        "solver": "enumeration only", "host_walk": "bfs, JAX defaults",
+                        "static_prune": True, "static_answer": True},
            "host_sat": stats.get("host_sat"),
+           "static": {k: stats.get(k) for k in ("static_summaries", "static_pruned_flips",
+                                                "static_seeds_dropped")},
+           "static_answered": sorted(rows[i][2] for i in answers),
            "contracts": contracts}
     VENDORED_LADDER_PIN.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
     print(f"wrote {VENDORED_LADDER_PIN} ({wall:.1f} s of prepass, host_sat "

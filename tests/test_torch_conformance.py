@@ -21,6 +21,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_jax_memory import release_jax_executables  # noqa: F401
 
 from mythril_tpu.laser import conformance as jconf
 from mythril_tpu.laser.batch.run import run as jax_run

@@ -19,7 +19,9 @@ versions of the kernels) beside the JAX explorer on the same inputs:
   stats counter but the times (`explore.wave_snapshot`) must be equal;
 - `outcome()` and `ExploreStats.as_dict()` have the JAX package's keys.
 
-Both sides run with static pruning off and the device-first funnel. In
+Both sides run with static pruning off (the port's default is on: the
+module turns it off, and tests/test_torch_static.py holds the static-on
+explorer to the JAX one) and the device-first funnel. In
 the tests above the host escalation ladder is off on both sides: the
 port's `args.sprint_cap_s` is 0 for the whole module and the JAX
 explorer's `_sprint_cap_s` returns -1.0, so every device survivor is
@@ -50,6 +52,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_jax_memory import release_jax_executables  # noqa: F401
 
 from mythril_tpu_torch import interop
 from mythril_tpu_torch.laser.batch import explore as port_explore
@@ -139,13 +142,15 @@ def port_run(name, pipeline, trace=False, **over):
 def ladder_off():
     """The port's host ladder off for the module (a zero cap defers
     every device survivor), as the ladder-off pins were made; the
-    ladder-on tests switch it on themselves."""
+    ladder-on tests switch it on themselves. The port's static pruning
+    is off too, as on the JAX side of every pin here; the static-on
+    tests switch it on themselves."""
     from mythril_tpu_torch.support.support_args import args
 
-    saved = args.sprint_cap_s
-    args.sprint_cap_s = 0.0
+    saved = args.sprint_cap_s, args.static_prune
+    args.sprint_cap_s, args.static_prune = 0.0, False
     yield
-    args.sprint_cap_s = saved
+    args.sprint_cap_s, args.static_prune = saved
 
 
 @pytest.fixture(scope="module")
@@ -305,19 +310,27 @@ def test_arena_view_holds_host_copies_only():
     assert all(np.array_equal(v, getattr(view, k)) for k, v in before.items())
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
+    """The mesh and specialization raise; static pruning, ported, attaches
+    its feed instead: a summary on every track and the statically dead
+    directions (exceptions.sol.o has three), and none with it off."""
+    from mythril_tpu_torch.laser import symbolic_wave
     from mythril_tpu_torch.support.support_args import args
 
     with pytest.raises(NotImplementedError, match="mesh"):
         port_explore.DeviceCorpusExplorer([GATED], n_devices=2, device="cpu")
     with pytest.raises(NotImplementedError, match="specialization"):
         port_explore.DeviceCorpusExplorer([GATED], specialize=True, device="cpu")
-    args.static_prune = True
-    try:
-        with pytest.raises(NotImplementedError, match="static pruning"):
-            port_explore.DeviceCorpusExplorer([GATED], device="cpu")
-    finally:
-        args.static_prune = False
+    exceptions = (symbolic_wave.CONTRACTS / "exceptions.sol.o").read_text().strip()
+    off = port_explore.DeviceCorpusExplorer([GATED, exceptions], device="cpu")
+    assert [t.static for t in off.tracks] == [None, None]
+    assert off.stats.static_summaries == 0
+    monkeypatch.setattr(args, "static_prune", True)
+    on = port_explore.DeviceCorpusExplorer([GATED, exceptions], device="cpu")
+    assert all(t.static is not None for t in on.tracks)
+    assert on.tracks[0].static_dead == frozenset()
+    assert on.tracks[1].static_dead == {(141, True), (530, True), (581, False)}
+    assert (on.stats.static_summaries, on.static_failed) == (2, 0)
 
 
 def test_absent_ladder_defers_and_keeps_retrying():
@@ -484,7 +497,10 @@ def test_capped_ladder_defers_with_the_real_cap(tmp_path, monkeypatch):
     from mythril_tpu_torch.observe import querylog
     from mythril_tpu_torch.support.support_args import args
 
-    monkeypatch.setattr(args, "sprint_cap_s", 0.05)
+    # each query sleeps 0.6 s before it solves: the first two start
+    # inside the 1 s cap (the first solve has 0.4 s of slack, which a
+    # loaded host's first blast needs), the last two after it
+    monkeypatch.setattr(args, "sprint_cap_s", 1.0)
     ex = port_explore.DeviceCorpusExplorer(["00"], lanes_per_contract=1, pipeline=False,
                                            device="cpu")
     real = port_explore.get_model
@@ -492,7 +508,7 @@ def test_capped_ladder_defers_with_the_real_cap(tmp_path, monkeypatch):
     def slow(*a, **kw):
         import time
 
-        time.sleep(0.03)
+        time.sleep(0.6)
         return real(*a, **kw)
 
     monkeypatch.setattr(port_explore, "get_model", slow)
@@ -511,7 +527,7 @@ def test_capped_ladder_defers_with_the_real_cap(tmp_path, monkeypatch):
                     for o in json.loads(p.read_text())["observations"]]
     assert sorted(o["site"] for o in observations) == ["check_terms"] * 2 + ["sprint_flips"] * 2
     assert [(o["loss_reason"], o["detail"]) for o in observations
-            if o["site"] == "sprint_flips"] == [("SPRINT_PREEMPTED", {"sprint_cap_s": 0.05})] * 2
+            if o["site"] == "sprint_flips"] == [("SPRINT_PREEMPTED", {"sprint_cap_s": 1.0})] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@
 import numpy as np
 import pytest
 import torch
+from torch_jax_memory import release_jax_executables  # noqa: F401
 
 from mythril_tpu_torch.exceptions import DeviceDispatchError, InjectedFault
 from mythril_tpu_torch.laser.batch import checkpoint as port_ckpt
@@ -41,13 +42,14 @@ GATED = "60003560f81c604214600d57005b600160005500"
 @pytest.fixture(scope="module", autouse=True)
 def ladder_off():
     """The port's host ladder off (a zero cap): the device-solve tests
-    count the funnel's retries of a query the ladder leaves open."""
+    count the funnel's retries of a query the ladder leaves open. Static
+    pruning off, as on the JAX side."""
     from mythril_tpu_torch.support.support_args import args
 
-    saved = args.sprint_cap_s
-    args.sprint_cap_s = 0.0
+    saved = args.sprint_cap_s, args.static_prune
+    args.sprint_cap_s, args.static_prune = 0.0, False
     yield
-    args.sprint_cap_s = saved
+    args.sprint_cap_s, args.static_prune = saved
 
 
 @pytest.fixture(autouse=True)

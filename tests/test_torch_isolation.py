@@ -12,7 +12,8 @@ form (analysis/, with the command line's `build_report`), a query
 through the host solver stack (`get_model`: the bit-blaster and the
 CDCL of the port's own g++ library), the host walk of a contract under
 `--device-ownership never` (the LASER engine, its plugins and the
-detection modules), a hybrid VMTests case (the host takeover) and an
+detection modules), the static pass (`summary_for`) and the `lint`
+command, a hybrid VMTests case (the host takeover) and an
 import of every module of the package (crypto/ and the precompiles
 among them), and checks that `jax` never
 entered `sys.modules`, that no module of the JAX package did either,
@@ -87,6 +88,15 @@ report, errors = cli.build_report([EVMContract(code="604260003560f81c14600d57005
 assert not errors and all(f() for f in (report.as_text, report.as_markdown,
                                         report.as_json, report.as_swc_standard_format))
 assert SignatureDB().get("0xa9059cbb") == ["transfer(address,uint256)"]
+import contextlib, io, json
+from mythril_tpu_torch.analysis.static import summary_for
+summary = summary_for("604260003560f81c14600d57005b33ff")
+assert "AccidentallyKillable" in summary.applicable_modules()[0], summary.stats()
+lint_out = io.StringIO()
+with contextlib.redirect_stdout(lint_out):
+    assert cli.main(["lint", "--bin-runtime", "-c", "604260003560f81c14600d57005b33ff",
+                     "-o", "json"]) == 0
+assert json.loads(lint_out.getvalue())[0]["code_hash"] == summary.code_hash
 import os
 from mythril_tpu_torch.laser.smt import ULT, symbol_factory
 from mythril_tpu_torch.support.model import get_model

@@ -11,6 +11,7 @@ launches nothing. Tolerance: exact equality.
 import numpy as np
 import pytest
 import torch
+from torch_jax_memory import release_jax_executables  # noqa: F401
 
 import jax.numpy as jnp
 

@@ -40,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_memory import release_jax_executables  # noqa: F401
 
 from mythril_tpu.laser.smt import terms as JT
 from mythril_tpu.laser.smt.evalterm import eval_term as jax_eval

@@ -360,6 +360,25 @@ def test_race_cone_picks_the_same_indices():
     assert [len(p) for p in picked["port"]] == [3, 8, 20, 41]
 
 
+def test_race_cone_seeds_past_a_constant_tail():
+    """A lowered query that ends in constant `true` conjuncts (as an
+    analysis query of the walk does): the cone seeds on the last
+    conjuncts that carry a variable and grows from there, so the race
+    has something to search and the portfolio compiles it. Seeded on
+    the constant tail, as the JAX package seeds, the cone would hold no
+    variable."""
+    T = port_smt.terms
+    tag = f"ts{next(_FRESH)}"
+    x, y, z = (T.bv_var(f"{tag}{n}", 32) for n in "xyz")
+    body = [T.ult(z, T.bv_const(i + 1000, 32)) for i in range(400)]
+    lowered = body + [T.ult(x, y), T.eq(T.mul(x, y), T.bv_const(91, 32))] + [T.TRUE] * 3
+    cone = port_solver._race_cone(lowered, 8)
+    assert cone == lowered[400:402]
+    assert port_portfolio.compile_program(cone).var_slots
+    whole = port_solver._race_cone(lowered[:402], 8)
+    assert whole == lowered[400:402]
+
+
 def test_sprint_and_marathon_budgets_equal_the_jax_package(monkeypatch, deterministic):
     """tests/laser/smt/test_determinism.py:91 on both packages: the
     sprint passes SPRINT_CONFLICTS, and with the sprint forced to

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_memory import release_jax_executables  # noqa: F401
 
 from mythril_tpu.laser.batch.state import StateBatch as JaxBatch
 from mythril_tpu.laser.batch.state import make_batch as jax_make_batch

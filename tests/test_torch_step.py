@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_memory import release_jax_executables  # noqa: F401
 
 from mythril_tpu.disassembler.asm import assemble, push
 from mythril_tpu.laser.batch.run import run as jax_run

@@ -10,6 +10,7 @@ equality (integers).
 import numpy as np
 import pytest
 import torch
+from torch_jax_memory import release_jax_executables  # noqa: F401
 
 import jax.numpy as jnp
 

@@ -3,35 +3,39 @@ package's, on the CPU.
 
 Both packages walk the same contracts under `deterministic_solving`
 (no solver race, conflict-budgeted marathons) from a fresh solver
-session and model cache, with the JAX package's static pruning off (the
-port has none):
+session and model cache, each test with static pruning (the detector
+screen, analysis/static) off and on, set alike in both packages:
 
 - the 14 module positive fixtures of
   tests/analysis/test_module_positive_fixtures.py, each with its module
   alone, and the fault-suite contracts of tests/laser/test_pipeline.py
   (KILLABLE, WRITER, BRANCHER, GATED) with every module, run live
   through both packages with no device prepass: the issue fingerprints
-  (swc-id, address, title, function) are equal, and every fixture gives
-  at least one issue;
+  (swc-id, address, title, function) are equal, both packages mount the
+  same modules (`static_screen`), and every fixture gives at least one
+  issue;
 - the five quick vendored contracts the device does not own (origin,
   metacoin, overflow, underflow, kinds_of_calls), walked with a pinned
   JAX prepass outcome injected (carried as JSON by
   `interop.outcome_to_json`/`outcome_from_json`): the issues' `as_dict`s
-  equal the JAX walk's (an `as_dict` carries no wall time), transaction
-  sequences included. One is exempt (SEQUENCE_VARIES): witness
-  minimization (`analysis/solver.py`) refines its objectives under a
-  wall budget, so the JAX walk of kinds_of_calls gives a different
-  initial balance for its second SWC-107 issue from one run to the next,
-  in one process too. Where that sequence differs from the pin's, it
-  must replay to its issue's pc on the port's concrete interpreter
-  (analysis/replay.py), as the pinned one does.
+  equal the JAX walk's (an `as_dict` carries no wall time) in every
+  field but the transaction sequence, which must equal the pin's or
+  replay to its issue's pc on the port's concrete interpreter
+  (analysis/replay.py). The witness model is not a function of the
+  query alone in either package: the term layer orders commutative
+  children by creation id, so the terms an earlier walk in the same
+  process left behind change the CNF of a later one (overflow's first
+  SWC-101 gets another sequence when it is walked after another
+  contract; the static screen, which changes which queries a walk
+  poses, moves kinds_of_calls' and overflow's sequences too).
 
 The three slow vendored contracts (calls, ether_send, environments, 15
 to 50 s each on the CPU) run only in the script mode,
 
     PYTHONPATH=. python tests/test_torch_walk.py --full
 
-which walks all eight against the JAX package live. The JAX side is
+which walks all eight against the JAX package live (`--full-static`:
+both with static pruning on). The JAX side is
 pinned in tests/test_torch_walk_pinned.json (the eight outcomes from the
 JAX corpus prepass at WAVES waves a phase under each package's
 enumeration-only solver, and the JAX walk's issues); regenerate it with
@@ -64,9 +68,6 @@ QUICK = ("origin", "metacoin", "overflow", "underflow", "kinds_of_calls")
 SLOW = ("calls", "ether_send", "environments")
 #: the JAX corpus prepass's wave cap a phase for the pinned outcomes
 WAVES = 8
-#: (contract, position in its issue list) of the one issue whose
-#: transaction sequence the JAX walk does not reproduce from run to run
-SEQUENCE_VARIES = {("kinds_of_calls", 2)}
 #: the walk's settings: the JAX analyze defaults, two transactions
 WALK = dict(strategy="bfs", transaction_count=2, execution_timeout=600,
             create_timeout=10, max_depth=128, loop_bound=3, modules=None,
@@ -100,19 +101,31 @@ def vendored(name: str) -> str:
 @pytest.fixture(autouse=True)
 def deterministic(monkeypatch):
     """Both packages: deterministic solving, no device prepass of their
-    own, the JAX static pruning off, and a fresh model cache and solver
-    session (SymExecWrapper resets the session itself)."""
+    own, static pruning off (the `static` fixture turns it on), and a
+    fresh model cache and solver session (SymExecWrapper resets the
+    session itself)."""
     from mythril_tpu.support import model as jax_model
     from mythril_tpu.support.support_args import args as jax_args
     from mythril_tpu_torch.support import model as port_model
     from mythril_tpu_torch.support.support_args import args as port_args
 
-    for flag, value in (("deterministic_solving", True), ("device_prepass", "never")):
+    for flag, value in (("deterministic_solving", True), ("device_prepass", "never"),
+                        ("static_prune", False)):
         monkeypatch.setattr(jax_args, flag, value)
         monkeypatch.setattr(port_args, flag, value)
-    monkeypatch.setattr(jax_args, "static_prune", False)
     jax_model.clear_cache()
     port_model.clear_cache()
+
+
+@pytest.fixture(params=[False, True], ids=["static_off", "static_on"])
+def static(request, monkeypatch):
+    """Static pruning as the parameter says, in both packages."""
+    from mythril_tpu.support.support_args import args as jax_args
+    from mythril_tpu_torch.support.support_args import args as port_args
+
+    monkeypatch.setattr(jax_args, "static_prune", request.param)
+    monkeypatch.setattr(port_args, "static_prune", request.param)
+    return request.param
 
 
 class _Contract:
@@ -126,9 +139,10 @@ class _Contract:
         self.disassembly = disassembly_cls(code)
 
 
-def walk_live(package: str, code: str, modules=None, tx_count=1):
+def walk_live(package: str, code: str, modules=None, tx_count=1, screen=None):
     """The positive-fixture suite's `analyze` through `package`: one
-    SymExecWrapper + fire_lasers at address 0x1234, bfs."""
+    SymExecWrapper + fire_lasers at address 0x1234, bfs. `screen`, a
+    list, receives the wrapper's static screen (None: all modules)."""
     security = importlib.import_module(f"{package}.analysis.security")
     symbolic = importlib.import_module(f"{package}.analysis.symbolic")
     disassembly = importlib.import_module(f"{package}.disassembler.disassembly")
@@ -137,6 +151,8 @@ def walk_live(package: str, code: str, modules=None, tx_count=1):
         _Contract(disassembly.Disassembly, code), address=0x1234, strategy="bfs",
         execution_timeout=90, create_timeout=30, transaction_count=tx_count,
         modules=modules, **kw)
+    if screen is not None:
+        screen.append(sym.static_screen)
     return security.fire_lasers(sym, white_list=modules)
 
 
@@ -145,22 +161,30 @@ def fingerprints(issues):
 
 
 @pytest.mark.parametrize("module", sorted(FIXTURES))
-def test_positive_fixture_issues_equal_the_jax_package(module):
+def test_positive_fixture_issues_equal_the_jax_package(module, static):
     code, expected_swc = FIXTURES[module]
-    want = fingerprints(walk_live("mythril_tpu", code, [module]))
-    got = fingerprints(walk_live("mythril_tpu_torch", code, [module]))
+    screens = []
+    want = fingerprints(walk_live("mythril_tpu", code, [module], screen=screens))
+    got = fingerprints(walk_live("mythril_tpu_torch", code, [module], screen=screens))
     assert got == want
     assert got, f"{module} produced no issues on its positive fixture"
     if expected_swc is not None:
         assert {fp[0] for fp in got} & expected_swc
+    assert screens[0] == screens[1]
+    assert (screens[1] is None) == (not static)
+    if static:
+        assert module in screens[1]
 
 
 @pytest.mark.parametrize("name", sorted(FAULT_SUITE))
-def test_fault_suite_issues_equal_the_jax_package(name):
+def test_fault_suite_issues_equal_the_jax_package(name, static):
     code = FAULT_SUITE[name]
-    want = fingerprints(walk_live("mythril_tpu", code, tx_count=2))
-    got = fingerprints(walk_live("mythril_tpu_torch", code, tx_count=2))
+    screens = []
+    want = fingerprints(walk_live("mythril_tpu", code, tx_count=2, screen=screens))
+    got = fingerprints(walk_live("mythril_tpu_torch", code, tx_count=2, screen=screens))
     assert got == want
+    assert screens[0] == screens[1]
+    assert (screens[1] is None) == (not static)
 
 
 def test_inputs_are_the_jax_suites_contracts():
@@ -208,8 +232,8 @@ def test_cli_passes_the_walk_flags(monkeypatch, capsys):
                  "device_complete": False, "owned": False}]
 
     monkeypatch.setattr(port_corpus, "analyze_corpus", record)
-    monkeypatch.setattr(args, "call_depth_limit", args.call_depth_limit)
-    monkeypatch.setattr(args, "iprof", args.iprof)
+    for flag in ("call_depth_limit", "iprof", "static_prune", "static_answer"):
+        monkeypatch.setattr(args, flag, getattr(args, flag))
     rc = cli.main(["analyze", "--bin-runtime", "-c", "33ff", "--device", "cpu", "-o", "json",
                    "-m", "TxOrigin, Exceptions", "--strategy", "dfs", "--max-depth", "40",
                    "-b", "2", "--solver-timeout", "500", "--create-timeout", "3",
@@ -307,32 +331,37 @@ def port_walk(name: str, outcome_json: str):
         device="cpu", **WALK)
 
 
-def walk_differences(name: str, got: list, want: list) -> list:
+def walk_differences(got: list, want: list) -> list:
     """Where the port's walked issue dicts differ from the JAX walk's:
-    [(position, swc-id, pc)], a length mismatch as position -1. The
-    transaction sequences count, except at SEQUENCE_VARIES, where a
-    differing sequence must replay to its pc instead."""
+    [(position, swc-id, pc, the fields that differ)], a length mismatch
+    as [(-1, got's (swc-id, pc)s, want's)]. Every field but the
+    transaction sequence must be equal; a sequence that differs from
+    the JAX walk's must replay to its pc ("tx_sequence" is listed when
+    it does not)."""
     from mythril_tpu_torch.analysis.replay import replays_to
 
     if len(got) != len(want):
-        return [(-1, len(got), len(want))]
+        return [(-1, [(i["swc-id"], i["address"]) for i in got],
+                 [(i["swc-id"], i["address"]) for i in want])]
     bad = []
     for k, (g, w) in enumerate(zip(got, want)):
-        if (name, k) in SEQUENCE_VARIES and g["tx_sequence"] != w["tx_sequence"]:
-            same = replays_to(g, device="cpu") and all(
-                g[key] == w[key] for key in g if key != "tx_sequence")
-        else:
-            same = g == w
-        if not same:
-            bad.append((k, g["swc-id"], g["address"]))
+        fields = sorted(key for key in set(g) | set(w)
+                        if key != "tx_sequence" and g.get(key) != w.get(key))
+        if g["tx_sequence"] != w["tx_sequence"] and not replays_to(g, device="cpu"):
+            fields.append("tx_sequence")
+        if fields:
+            bad.append((k, g["swc-id"], g["address"], fields))
     return bad
 
 
 @pytest.mark.parametrize("name", QUICK)
-def test_vendored_walk_equals_the_jax_pin(name, pinned):
+def test_vendored_walk_equals_the_jax_pin(name, pinned, static):
+    """The pin is the JAX walk with static pruning off; the static-on
+    walk reaches the same issues (the screen only drops modules that
+    cannot fire), so it is held to the same pin."""
     result = port_walk(name, pinned["outcomes"][name])
     assert result["error"] is None, result["error"]
-    assert walk_differences(name, result["issues"], pinned["issues"][name]) == []
+    assert walk_differences(result["issues"], pinned["issues"][name]) == []
     assert result["states"] > 0 and result["device_prepass"] is not None
 
 
@@ -392,7 +421,7 @@ def jax_outcomes() -> dict:
     return {name: interop.outcome_to_json(outcomes[i]) for i, (_, _, name) in enumerate(rows)}
 
 
-def _script_setup():
+def _script_setup(static: bool = False):
     import conftest  # noqa: F401  (the suite's JAX settings: CPU devices, flags)
     from mythril_tpu.support import model as jax_model
     from mythril_tpu.support.support_args import args as jax_args
@@ -402,7 +431,7 @@ def _script_setup():
     for a in (jax_args, port_args):
         a.deterministic_solving = True
         a.device_prepass = "never"
-    jax_args.static_prune = False
+        a.static_prune = static
     return jax_model, port_model
 
 
@@ -424,11 +453,11 @@ def pin() -> None:
     print(f"wrote {PINNED}")
 
 
-def full() -> None:
+def full(static: bool = False) -> None:
     """All eight contracts: the JAX walk live and the port's, each with
-    the pinned outcome injected; exits non-zero on any difference
-    (transaction sequences included, as in the tests)."""
-    jax_model, port_model = _script_setup()
+    the pinned outcome injected and static pruning as `static` says in
+    both; exits non-zero on any difference (as in the tests)."""
+    jax_model, port_model = _script_setup(static)
     doc = json.loads(PINNED.read_text())
     bad = 0
     for name in QUICK + SLOW:
@@ -441,7 +470,7 @@ def full() -> None:
         got = port_walk(name, doc["outcomes"][name])
         t_port = time.perf_counter() - t0
         differ = (["error"] if got["error"] is not None
-                  else walk_differences(name, got["issues"], want["issues"]))
+                  else walk_differences(got["issues"], want["issues"]))
         bad += bool(differ)
         print(f"{name}: {f'DIFFERENT {differ}' if differ else 'equal'}, "
               f"{len(got['issues'])} issues, JAX {t_jax:.1f} s, port {t_port:.1f} s")
@@ -450,8 +479,9 @@ def full() -> None:
 
 if __name__ == "__main__":
     sys.path[:0] = [str(TESTS), str(TESTS.parent)]
-    modes = {"--pin": pin, "--full": full}
+    modes = {"--pin": pin, "--full": full, "--full-static": lambda: full(True)}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         modes[sys.argv[1]]()
     else:
-        sys.exit("usage: PYTHONPATH=. python tests/test_torch_walk.py --pin | --full")
+        sys.exit("usage: PYTHONPATH=. python tests/test_torch_walk.py "
+                 "--pin | --full | --full-static")
