@@ -13,6 +13,8 @@
                                             # differential, the hybrid
                                             # VMTests and the analysis
                                             # (phases 11, 12, 9)
+    python3 chip_smoke.py --specialize      # device, build, then only the
+                                            # specialization phase (5b)
     python3 chip_smoke.py --solver          # device, build, the pinned wave
                                             # (phase 6), then only the host
                                             # solver stack (phase 6b)
@@ -29,7 +31,7 @@
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 non-zero (nothing is caught). They run one at a time, each alone on
-the card, in the order 1-12; 9 runs (b), (a) (a process of its own),
+the card, in the order 1-12 (5b after 5); 9 runs (b), (a) (a process of its own),
 the command-line checks (subprocesses, one at a time) and the wrapper's
 own prepass.
 
@@ -84,6 +86,20 @@ own prepass.
    must give the same result, counts the lanes that overflowed the
    arena; then reseed_wave_inplace into a second wave, which must equal
    a fresh batch of the same seeds, and run it;
+5b. specialization (laser/batch/specialize.py, blockjit.py): the substep
+   kernel (csrc/substep.cu) in each mode, fuse and block, concrete and
+   symbolic, on the vendored corpus's own buckets (the explorer's: static
+   summaries attached), against its plain version on the same 16384
+   lanes after 8 and after 25 full steps (every field it updates and its
+   counts; 0 mismatches), timed (profiler, each launch from the same
+   state) beside its plain version and its bound (the least bytes this
+   state's executed substeps move, by class: substep_traffic); then the 16384-lane vendored wave on the
+   generic loop, the fuse-only bucket and the block bucket: iterations,
+   wall, ms and CUDA kernels an iteration, active and substep
+   lane-steps, blocks entered, and each specialized wave's final state
+   equal to the generic one's (term ids compared by their terms'
+   structure: the arena's row order follows when lanes reach their
+   nodes);
 6. symbolic parity: the pinned 260-lane wave on the card must hash, field
    by field, to the JAX package's digests
    (mythril_tpu_torch/laser/symbolic_wave_digests.json), its flip
@@ -145,7 +161,9 @@ own prepass.
 9. analyze (the main path's step 4, analysis/corpus.py): the 13
    vendored contracts through analyze_corpus on the card at the
    small-corpus prepass geometry, the waves a phase capped at 8 (the JAX
-   package's cap is 48), with the host escalation ladder on and the host
+   package's cap is 48), with kernel specialization and blockjit on (the
+   default, as in the JAX package: the bucket held to the pin's, and
+   block_substep must launch), with the host escalation ladder on and the host
    walk (SymExecWrapper + fire_lasers, the prepass outcome injected) of
    every contract the device does not own, twice, both with the static
    pass on (analysis/static, the default as in the JAX package: the
@@ -180,7 +198,8 @@ own prepass.
    SWC-110 at pc 0, and a third file, CLEAN (the JAX corpusgen's
    clean_contract(0)), statically answered (no issue, no lane: stderr
    names it), and each milestone contract alone through `-c` (the same
-   issues); gated_kill again under `--device-ownership never` (walked on
+   issues), gated_kill with `--no-specialize` (the generic kernel) and
+   always_assert with `--no-blockjit` (fused substeps only); gated_kill again under `--device-ownership never` (walked on
    the host, the same issue); origin.sol.o, which the device does not
    own, through `-f` (exit 0, the JAX pin's issues from the host walk);
    `python -m mythril_tpu_torch lint -f ... -o json` on the 13 vendored
@@ -191,7 +210,8 @@ own prepass.
    slot_write. Phase 8 runs with the ladder off (a zero cap), as it did
    before the ladder was ported;
 10. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
-   own programs (the search also on the cube fan's), on queries the
+   own programs (the search also on the cube fan's first CUBE_CHECK_Q;
+   all of them are timed), on queries the
    search solves (before the first step and mid-search) and on
    synthetic ones at 32 to 2048 bits (every op, L = 16 to 128), each
    against its plain version run on CPU copies of the same inputs (bit
@@ -218,8 +238,9 @@ own prepass.
    takeovers counted;
 13. report: the `kernels` JSON line (each kernel's launches on every
    path: main, symbolic wave, flip frontier, explore, analyze, the
-   vendored walks of analyze (b), the race gate's walk, solver), then the
-   result line.
+   vendored walks of analyze (b), the race gate's walk, solver; for
+   fused_substep and block_substep also `launches_spec_wave`, the 5b
+   wave of their mode), then the result line.
 
 After 4 it also prints where a main-path step's time goes
 (torch.profiler: CUDA kernels per step, device busy share, top kernels)
@@ -268,11 +289,25 @@ RESTART_BASES = (2, 4)  # the restart-forcing checks' Luby unit (the default is 
 FLIP_STEPS = 192  # device_solve_batch's first pass (PORTFOLIO_DEFAULTS first_pass_steps)
 OCCUPANCY_Q = 128  # queries of the timed occupancy run
 BATCH_CHECK_Q = 16  # programs of an explorer batch held to the portfolio's plain versions
+CUBE_CHECK_Q = 8  # cube-fan programs held to the plain search (all of them are timed)
 PROFILE_TRIES = 10  # profiles kernel_ms takes before it reports a kernel as not measured
 # (a profile sometimes records no device activity at all: 5 tries missed
 # one kernels-line shape on an H100 in one run, while the shapes timed
 # before and after it were seen)
 ENUM_K = 4096  # device_enumerate's chunk: portfolio_eval's timed shape
+SPEC_CHECK_STEPS = (8, 25)  # full steps before each substep check: straight-line
+# dispatcher code, then lanes inside fusible runs and lowered blocks
+SPEC_REPS = 10  # profiled substep launches per check
+SPEC_PROFILE_STEPS = 4  # profiled loop iterations of each 5b wave (from iteration 32)
+# the substep kernel's least traffic (substep_traffic): a lane not
+# RUNNING reads its status (4 B); a RUNNING one reads its status, code
+# id, pc, sp (4 B each), gas bounds and budget (8 B each), and one that
+# executed writes pc, sp and the gas bounds back; a stack slot is 64 B,
+# its tid 4 B, a coverage word 4 B; an ALU op is counted as 16 int32
+# operations (bytes bound it either way)
+STATUS_BYTES, LANE_READ_BYTES, LANE_WRITE_BYTES = 4, 40, 24
+SLOT_BYTES, TID_BYTES, WORD_BYTES = 64, 4, 4
+ALU_OPS = 16
 
 # H100 SXM peaks (NVIDIA data sheet; the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1020,21 +1055,36 @@ FLIP_KERNELS = ("portfolio_eval", "portfolio_sls")
 
 
 def reset_launches():
-    from mythril_tpu_torch.ops import keccak_cuda, portfolio_eval, portfolio_sls, slot_write
+    from mythril_tpu_torch.ops import (
+        keccak_cuda,
+        portfolio_eval,
+        portfolio_sls,
+        slot_write,
+        substep,
+    )
 
     keccak_cuda.LAUNCHES = keccak_cuda.SPONGE_LAUNCHES = 0
     slot_write.LAUNCHES = slot_write.MANY_LAUNCHES = 0
     portfolio_eval.LAUNCHES = portfolio_sls.LAUNCHES = 0
+    substep.LAUNCHES = substep.FUSE_LAUNCHES = substep.BLOCK_LAUNCHES = 0
 
 
 def read_launches():
     """Launches since reset_launches(), by kernel; slot_write counts both
-    of its forms, slot_write_many the multi-table form alone."""
-    from mythril_tpu_torch.ops import keccak_cuda, portfolio_eval, portfolio_sls, slot_write
+    of its forms, slot_write_many the multi-table form alone; the
+    substep kernel is named by its mode (fused_substep, block_substep)."""
+    from mythril_tpu_torch.ops import (
+        keccak_cuda,
+        portfolio_eval,
+        portfolio_sls,
+        slot_write,
+        substep,
+    )
 
     return {"keccak_f1600": keccak_cuda.LAUNCHES, "keccak_sponge": keccak_cuda.SPONGE_LAUNCHES,
             "slot_write": slot_write.LAUNCHES, "slot_write_many": slot_write.MANY_LAUNCHES,
-            "portfolio_eval": portfolio_eval.LAUNCHES, "portfolio_sls": portfolio_sls.LAUNCHES}
+            "portfolio_eval": portfolio_eval.LAUNCHES, "portfolio_sls": portfolio_sls.LAUNCHES,
+            "fused_substep": substep.FUSE_LAUNCHES, "block_substep": substep.BLOCK_LAUNCHES}
 
 
 def check_path_launches(path, launches):
@@ -1225,6 +1275,378 @@ def phase_wave(card):
         f"ms/step, {int(active2) / wall2:,.0f} active lane-steps/s on {card}")
     return dict(launches=launches, wall=wall, steps=steps,
                 frontier=(view, symb.base.code_id.cpu().numpy()))
+
+
+SPEC_KERNELS = ("fused_substep", "block_substep")
+
+
+def vendored_buckets():
+    """The vendored corpus's specialization as the explorer makes it
+    (static summaries attached, the default): {mode: (PhaseSet, table on
+    the card)} for the fuse-only bucket (blockjit off) and the block
+    bucket (blockjit on)."""
+    import torch
+
+    from mythril_tpu_torch.analysis.static import summary_for
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.laser.batch import blockjit as bj
+    from mythril_tpu_torch.laser.batch import specialize as sp
+    from mythril_tpu_torch.laser.batch.seeds import code_cap_bucket
+
+    codes = wave.load_contracts()
+    sums = [summary_for(c.hex()) for c in codes]
+    cap = code_cap_bucket(max(len(c) for c in codes))
+    out = {}
+    for mode, block in (("fuse", False), ("block", True)):
+        phases = sp.union_phases([
+            sp.phases_for(sp.signature_for(c, s), fuse=sp.fuse_profitable(c, s),
+                          block_depth=bj.block_depth_for(c, s) if block else 0)
+            for c, s in zip(codes, sums)])
+        table = (bj.build_block_table if block else sp.build_fuse_table)(codes, cap, sums)
+        out[mode] = (phases, torch.from_numpy(table).to("cuda"))
+    return out
+
+
+def substep_state_fields(batch, tid):
+    """The tensors a substep launch updates, by name."""
+    out = {"pc": batch.pc, "sp": batch.sp, "gas_min": batch.gas_min,
+           "gas_max": batch.gas_max, "stack": batch.stack, "pc_seen": batch.pc_seen}
+    if tid is not None:
+        out["stack_tid"] = tid
+    return out
+
+
+def substep_traffic(base, code, table, phases, tid):
+    """The least bytes and int32 operations of one launch of the substep
+    kernel from this state. The plain substeps are replayed one at a
+    time; each executed lane-substep is charged by its class: PUSHn its
+    opcode and n immediate bytes and one slot written, DUPn one slot read
+    and one written, SWAPn two read and two written, an ALU op its
+    operands read (one for ISZERO and NOT) and one slot written, POP,
+    JUMPDEST and the rest no slot; each reads its table byte and sets a
+    coverage bit. Each input is read once and each output written once
+    over the launch: a slot (and its tid on symbolic lanes) is read only
+    where its value comes from the launch's input, a slot or coverage
+    word written several times is written once, and a code or table byte
+    or a code length is read once however many lanes read it. A lane not
+    RUNNING reads its status; a RUNNING one reads its lane words and one
+    that executed writes them back. Returns (bytes, operations,
+    {class: lane-substeps})."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.laser.batch.blockjit import block_substep
+    from mythril_tpu_torch.laser.batch.specialize import fused_substep
+    from mythril_tpu_torch.laser.batch.state import StateBatch
+    from mythril_tpu_torch.ops import substep
+
+    depth, block = substep.plan(phases)
+    b = StateBatch(*(t.clone() for t in base))
+    t = None if tid is None else tid.clone()
+    pcs, sps, ran = [], [], []
+    for _ in range(depth):
+        pc0, sp0 = b.pc.clone(), b.sp.clone()
+        if block:
+            b = block_substep(b, code, table, stack_tid=t, phases=phases)[0]
+        else:
+            b = fused_substep(b, code, table, stack_tid=t)[0]
+        pcs.append(pc0)
+        sps.append(sp0)
+        ran.append(b.pc != pc0)  # an executed op always advances pc
+    pcs, sps, ran = (torch.stack(x).cpu().numpy() for x in (pcs, sps, ran))
+    ops = code.ops.cpu().numpy()
+    ops_w, tbl_w = ops.shape[1], table.shape[1]
+    cid = base.code_id.cpu().numpy().clip(0, ops.shape[0] - 1)
+    running = int((base.status == 0).sum())
+    code_bytes, table_bytes, words, codes, op_kinds = set(), set(), set(), set(), set()
+    slots = 0
+    classes = dict(push=0, dup=0, swap=0, alu=0, other=0)
+    for lane in np.flatnonzero(ran.any(axis=0)):
+        c = int(cid[lane])
+        codes.add(c)
+        read, written = set(), set()
+        for d in np.flatnonzero(ran[:, lane]):
+            pc, sp = int(pcs[d, lane]), int(sps[d, lane])
+            at = min(pc, ops_w - 33)
+            op = int(ops[c, at])
+            op_kinds.add(op)
+            nb = op - 0x5F if 0x60 <= op <= 0x7F else 0
+            code_bytes.update((c, at + i) for i in range(nb + 1))
+            table_bytes.add((c, min(pc, tbl_w - 1)))
+            words.add((int(lane), pc // 32))
+            if nb:
+                kind, r, w = "push", (), (sp,)
+            elif 0x80 <= op <= 0x8F:
+                kind, r, w = "dup", (sp - 1 - (op - 0x80),), (sp,)
+            elif 0x90 <= op <= 0x9F:
+                pair = (sp - 1, sp - 1 - (op - 0x8F))
+                kind, r, w = "swap", pair, pair
+            elif block and (0x01 <= op <= 0x03 or op == 0x0B or 0x10 <= op <= 0x1D):
+                r = (sp - 1,) if op in (0x15, 0x19) else (sp - 1, sp - 2)
+                kind, w = "alu", (sp - len(r),)
+            else:
+                kind, r, w = "other", (), ()
+            classes[kind] += 1
+            read.update(s for s in r if s not in written)
+            written.update(w)
+        slots += len(read) + len(written)
+    moved = int(ran.any(axis=0).sum())
+    nbytes = ((base.pc.shape[0] - running) * STATUS_BYTES + running * LANE_READ_BYTES
+              + moved * LANE_WRITE_BYTES + len(code_bytes) + len(table_bytes)
+              + 4 * len(codes)  # code lengths
+              + 6 * 4 * len(op_kinds)  # the ops' meta rows
+              + slots * (SLOT_BYTES + (TID_BYTES if tid is not None else 0))
+              + 2 * WORD_BYTES * len(words)  # coverage words read and written
+              + 2 * 8)  # the two counts
+    return nbytes, classes["alu"] * ALU_OPS, classes
+
+
+def check_substep_kernel(card, mode, phases, table, mid, code, symbolic):
+    """One launch of the substep kernel against its plain version on the
+    same 16384 lanes (every updated field and the counts), then its time
+    (profiler, SPEC_REPS launches, each from the same state), the plain
+    version's and the bound for this state's executed substeps
+    (substep_traffic)."""
+    import torch
+
+    from mythril_tpu_torch.laser.batch.state import StateBatch
+    from mythril_tpu_torch.ops import substep
+
+    base = mid.base
+    tid = mid.stack_tid if symbolic else None
+    runs = {}
+    for kind in ("plain", "kernel"):
+        b = StateBatch(*(t.clone() for t in base))
+        t = tid.clone() if symbolic else None
+        counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+        fn = substep.substep_plain if kind == "plain" else substep.substep_run
+        out = fn(b, code, table, phases, counts, stack_tid=t)
+        sync()
+        runs[kind] = (substep_state_fields(out, t), counts.tolist())
+    (want, want_counts), (got, got_counts) = runs["plain"], runs["kernel"]
+    lanes_bad = torch.zeros(base.pc.shape[0], dtype=torch.bool, device="cuda")
+    err = 0
+    for name, w in want.items():
+        diff = (got[name].long() - w.long()).reshape(w.shape[0], -1)
+        lanes_bad |= (diff != 0).any(dim=1)
+        err = max(err, int(diff.abs().max()))
+    mismatches = int(lanes_bad.sum()) + (got_counts != want_counts)
+    executed, heads = want_counts
+    # time: each profiled launch restores the state first (copy kernels,
+    # not counted under the substep kernel's name)
+    work = StateBatch(*(t.clone() for t in base))
+    work_tid = tid.clone() if symbolic else None
+    saved = {k: v.clone() for k, v in substep_state_fields(base, tid).items()}
+    live = substep_state_fields(work, work_tid)
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+
+    def restore():
+        for k, v in saved.items():
+            live[k].copy_(v)
+        counts.zero_()
+
+    def kernel_call():
+        restore()
+        substep.substep_run(work, code, table, phases, counts, stack_tid=work_tid)
+
+    def plain_call():
+        restore()
+        substep.substep_plain(work, code, table, phases, counts, stack_tid=work_tid)
+
+    dev_ms, call_ms = kernel_ms(kernel_call, "substep_kernel", SPEC_REPS)
+    plain_ms = time_cuda(plain_call, 2)
+    n = base.pc.shape[0]
+    moved = int((runs["kernel"][0]["pc"] != base.pc).sum())
+    nbytes, n_ops, classes = substep_traffic(base, code, table, phases, tid)
+    if sum(classes.values()) != executed:
+        raise SystemExit(f"substep_traffic counted {sum(classes.values())} lane-substeps, "
+                         f"the plain version {executed}")
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    bound, by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    log(f"[specialize] {mode} substeps x{substep.plan(phases)[0]} "
+        f"{'symbolic' if symbolic else 'concrete'}, {n} lanes: {mismatches} mismatches "
+        f"against the plain version (max abs err {err}); {executed} lane-substeps executed "
+        f"{classes}, {heads} block heads, {moved} lanes moved; kernel {ms_text(dev_ms)} "
+        f"({call_ms:.4f} ms a call between events, state restore included), plain "
+        f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by} ({nbytes:,} B) on {card}")
+    return dict(mismatches=mismatches, max_abs_err=err, kernel_ms=dev_ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by, bytes=nbytes,
+                executed=executed, classes=classes,
+                heads=heads, moved=moved)
+
+
+def spec_wave(label, card, fresh, phases=None, table=None):
+    """The 16384-lane vendored wave to completion (or WAVE_MAX_STEPS loop
+    iterations) on the generic loop (phases None) or a specialized one:
+    wall, iterations, active and substep lane-steps, blocks entered,
+    host reads, the kernels' launches, then a profile of
+    WAVE_PROFILE_STEPS iterations from a state WAVE_PROFILE_STEPS
+    iterations in. `fresh()` gives a copy of the seeded wave and its
+    code table."""
+    from mythril_tpu_torch.laser.batch import specialize as sp
+    from mythril_tpu_torch.laser.batch import symbolic as sym
+    from mythril_tpu_torch.support import hostsync
+
+    def go(symb, code, steps):
+        if phases is None:
+            out, it, active = sym.sym_run_inplace(symb, code, max_steps=steps)
+            return out, it, active, 0, 0
+        return sp.SpecializedKernel(phases).sym_run(symb, code, table, steps, donate=True)
+
+    symb, code = fresh()
+    sync()
+    reset_launches()
+    hostsync.COUNT = 0
+    t0 = time.perf_counter()
+    out, steps, active, fused, blocks = go(symb, code, WAVE_MAX_STEPS)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    syncs = hostsync.COUNT
+    running = int((out.base.status == 0).sum())
+    active, fused, blocks = int(active), int(fused), int(blocks)
+    prof_in, code2 = fresh()
+    prof_in = go(prof_in, code2, WAVE_PROFILE_STEPS)[0]
+    sync()
+    per_iter_ms, kernels = profile_steps(
+        f"specialize {label} profile", lambda: go(prof_in, code2, SPEC_PROFILE_STEPS),
+        SPEC_PROFILE_STEPS, card, wall / steps * 1e3)
+    del prof_in
+    log(f"[specialize] {label} wave, {symb.base.pc.shape[0]} lanes: {steps} iterations, "
+        f"{wall:.3f} s, {wall / steps * 1e3:.3f} ms/iteration, {active} active lane-steps "
+        f"+ {fused} substep lane-steps ({(active + fused) / wall:,.0f} instructions/s), "
+        f"{blocks} blocks entered, {syncs / steps:.2f} host reads/iteration, "
+        f"{running} lanes still running, launches {launches} on {card}")
+    return dict(out=out, steps=steps, wall=wall, active=active, substep_steps=fused,
+                blocks=blocks, launches=launches, running=running, busy_ms=per_iter_ms,
+                kernels=kernels)
+
+
+def shadow_canonical(symb):
+    """The symbolic wave's state with each term id replaced by its term's
+    structure: the arena row order depends on when lanes reach their
+    nodes, which the substeps change, so two runs of the same lanes are
+    compared up to it. Returns {field: tensor on the card}: the base
+    fields, the non-id shadow fields, the id fields mapped to canonical
+    ints (a term's (op, children, operand values), numbered in the order
+    of the sorted structures; ids <= 0 kept), and the sorted canonical
+    ids of the arena's rows. The arena's rows are read to the host; the
+    id fields are mapped on the card."""
+    import torch
+
+    count = int(symb.ar_count)
+    rows = [t[:count].cpu().numpy() for t in (symb.ar_op, symb.ar_a, symb.ar_b,
+                                               symb.ar_va, symb.ar_vb)]
+    keys = []
+    for op, a, b, va, vb in zip(*rows):
+        keys.append((int(op), int(a) if a <= 0 else keys[a - 1],
+                     int(b) if b <= 0 else keys[b - 1], va.tobytes(), vb.tobytes()))
+    canon = {k: i + 1 for i, k in enumerate(sorted(set(keys), key=repr))}
+    ids = torch.tensor([0] + [canon[k] for k in keys] + [-1], dtype=torch.int64,
+                       device=symb.ar_op.device)
+
+    def mapped(t):
+        t = t.long()
+        # an id past ar_count would name no row: it maps to -1
+        idx = torch.where(t <= count, t.clamp(min=0), count + 1)
+        return torch.where(t > 0, ids[idx], t)
+
+    out = {f"base.{k}": v for k, v in zip(symb.base._fields, symb.base)}
+    id_fields = ("stack_tid", "mem_tid", "skey_tid", "sval_tid", "br_tid", "ev_tid", "ev_vtid")
+    for name, v in zip(symb._fields[1:], symb[1:]):
+        if name.startswith("ar_") and name != "ar_count":
+            continue
+        out[name] = mapped(v) if name in id_fields else v
+    out["arena"] = torch.tensor(sorted(canon.values()), dtype=torch.int64)
+    return out
+
+
+def phase_specialize(card):
+    """Kernel specialization and blockjit on the card: the substep kernel
+    in each mode (fuse, block; concrete, symbolic) against its plain
+    version on the vendored wave's 16384 lanes after a few full steps,
+    then the vendored wave on the generic loop, the fuse-only bucket and
+    the block bucket, whose final states must equal the generic one's
+    where both run to completion."""
+    import torch
+
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.laser.batch import symbolic as sym
+
+    t0 = time.perf_counter()
+    buckets = vendored_buckets()
+    for mode, (phases, _) in buckets.items():
+        log(f"[specialize] vendored {mode} bucket: pruned {list(phases.pruned)}, fuse_depth "
+            f"{phases.fuse_depth}, block_depth {phases.block_depth}")
+    checks = {mode: [] for mode in buckets}
+    seeded, code = wave.make_wave(WAVE_STRIPES, WAVE_LANES_PER_STRIPE)
+
+    def fresh():
+        return sym.clone_sym_batch(seeded), code
+
+    symb = fresh()[0]
+    done = 0
+    for steps in SPEC_CHECK_STEPS:
+        symb, _, _ = sym.sym_run_inplace(symb, code, max_steps=steps - done)
+        done = steps
+        for mode, (phases, table) in buckets.items():
+            for symbolic in (False, True):
+                row = check_substep_kernel(card, mode, phases, table, symb, code, symbolic)
+                row["state"] = f"{steps} full steps, {'symbolic' if symbolic else 'concrete'}"
+                checks[mode].append(row)
+    del symb
+    t_checks = time.perf_counter()
+    bad = sum(r["mismatches"] for rows in checks.values() for r in rows)
+    if bad:
+        raise SystemExit(f"the substep kernel disagrees with its plain version: {bad} "
+                         f"mismatches")
+    if not all(any(r["executed"] for r in rows) for rows in checks.values()):
+        raise SystemExit("a substep check executed no lane")
+
+    t_waves = time.perf_counter()
+    generic = spec_wave("generic", card, fresh)
+    fuse = spec_wave("fuse-only", card, fresh, *buckets["fuse"])
+    block = spec_wave("block", card, fresh, *buckets["block"])
+    t_compare = time.perf_counter()
+    want = None if generic["running"] else shadow_canonical(generic["out"])
+    for label, run, kernel in (("fuse-only", fuse, "fused_substep"),
+                               ("block", block, "block_substep")):
+        if not run["launches"][kernel]:
+            raise SystemExit(f"the {label} wave never launched {kernel}")
+        if generic["running"] or run["running"]:
+            log(f"[specialize] {label} against generic: not compared, lanes still running "
+                f"({run['running']}; generic {generic['running']})")
+            continue
+        got = shadow_canonical(run["out"])
+        differ = [name for name in want if not torch.equal(want[name], got[name])]
+        if differ:
+            raise SystemExit(f"the {label} wave's final state differs from the generic "
+                             f"one's in {differ}")
+        log(f"[specialize] {label} wave equal to the generic wave in every field (term ids "
+            f"up to the arena's row order); "
+            f"{generic['steps']} -> {run['steps']} iterations, wall {generic['wall']:.3f} -> "
+            f"{run['wall']:.3f} s, CUDA kernels/iteration {generic['kernels']} -> "
+            f"{run['kernels']} on {card}")
+    log(f"[specialize] seconds: buckets, wave and checks {t_checks - t0:.1f}, the three "
+        f"waves with their profiles {t_compare - t_waves:.1f}, the comparisons "
+        f"{time.perf_counter() - t_compare:.1f}")
+    kern = {}
+    for mode, name in (("fuse", "fused_substep"), ("block", "block_substep")):
+        main = checks[mode][-1]
+        kern[name] = dict(mismatches=sum(r["mismatches"] for r in checks[mode]),
+                          max_abs_err=max(r["max_abs_err"] for r in checks[mode]),
+                          kernel_ms=main["kernel_ms"], plain_ms=main["plain_ms"],
+                          bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                          library_ms=None, shape=f"16384 lanes, {main['state']}",
+                          checks=[{k: v for k, v in r.items()} for r in checks[mode]])
+        if main["kernel_ms"] is None:
+            raise SystemExit(f"the profiler saw no {name} kernel at the kernels line's shape")
+    waves = {label: {k: v for k, v in run.items() if k != "out"}
+             for label, run in (("generic", generic), ("fuse", fuse), ("block", block))}
+    return dict(kern=kern, waves=waves,
+                launches={"fused_substep": fuse["launches"]["fused_substep"],
+                          "block_substep": block["launches"]["block_substep"]})
 
 
 def phase_sym_parity():
@@ -1643,7 +2065,7 @@ def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
     # constraints on each root)
     cubes = cube_programs(list(frontier_progs)) if frontier_progs else []
     if cubes:
-        groups.append(("cube fan", cubes, SLS_CHECK_K[:1], knobs))
+        groups.append(("cube fan", cubes[:CUBE_CHECK_Q], SLS_CHECK_K[:1], knobs))
     groups += [("solving", solving, SLS_CHECK_K, knobs)]
     groups += [("synthetic", [p], SLS_CHECK_K[:2], knobs) for p in synthetic]
     # the Luby restarts inside the budget: frontier and wide synthetic
@@ -2128,6 +2550,12 @@ def run_explore(label, codes, names, card, **kw):
         f"wave_overlap_ratio {st['wave_overlap_ratio']}, device_idle_frac "
         f"{st['device_idle_frac']}, evidence {st['evidence_bytes']} B of "
         f"{st['evidence_bytes_full']} B, launches {launches} on {card}")
+    log(f"[explore {label}] specialization: bucket "
+        f"{None if ex.kernel_phases is None else list(ex.kernel_phases.pruned)} pruned, "
+        f"block_depth {getattr(ex.kernel_phases, 'block_depth', None)}, "
+        f"{st['spec_fused_steps']} fused + {st['blockjit_steps']} block substep lane-steps, "
+        f"{st['blockjit_blocks']} blocks entered, {st['blockjit_fallbacks']} blocks not "
+        f"lowered, {st['spec_fallbacks']} generic retries")
     for name, contract in zip(names, out["contracts"]):
         cov, trig, evid = explore_fingerprint(contract)
         log(f"[explore {label}] {name}: {len(cov)} directions covered {list(cov)}, triggers "
@@ -2245,11 +2673,20 @@ def hold_batch_to_plain(label, queries, card):
                          f"versions on the first batch: sls {sls_bad}, eval {eval_bad}")
 
 
+#: stats a wave snapshot holds that count the process's history, not
+#: the wave: the kernel cache's lookups (a bucket the card run missed is
+#: a hit for the CPU run that follows it)
+PROCESS_STATS = ("kernel_cache_hits", "kernel_cache_misses")
+
+
 def hold_first_wave(label, codes, kw, card_first):
     """The leg's first wave on the card against the same explorer's
-    first wave on the CPU."""
+    first wave on the CPU (every snapshot field but PROCESS_STATS)."""
     t0 = time.perf_counter()
     cpu_first = first_wave_on_cpu(codes, kw)
+    for snap in (cpu_first, card_first):
+        for key in PROCESS_STATS:
+            snap["stats"].pop(key)
     if cpu_first != card_first:
         differ = [k for k in cpu_first if cpu_first[k] != card_first[k]]
         raise SystemExit(f"explore {label}: the first wave differs from the CPU's in {differ}")
@@ -2289,7 +2726,7 @@ def _phase_explore(card):
         f"{EXPLORE_WAVES} waves a phase, 2 transactions, 64 candidates, cube depth 3")
     piped = run_explore("A pipelined", codes, names, card, pipeline=True, **kw)
     lock = run_explore("A lock-step", codes, names, card, pipeline=False, **kw)
-    for name in EXPLORE_KERNELS:
+    for name in EXPLORE_KERNELS + ("block_substep",):
         if not (piped["launches"][name] and lock["launches"][name]):
             raise SystemExit(f"explore leg A never launched {name} in one schedule")
     same = differ = 0
@@ -2402,6 +2839,19 @@ def analyze_cli(*argv, command="analyze", stderr=None):
 def static_counters(explorers):
     """The explorers' static-pass counters, summed."""
     return {k: sum(getattr(e.stats, k) for e in explorers) for k in STATIC_COUNTERS}
+
+
+def spec_counters(explorers):
+    """The explorers' specialization counters: the bucket's (the JAX pin
+    holds `specialized`, `spec_pruned_phases` and `blockjit_fallbacks`)
+    and the substeps' work, with `specialize_failed`."""
+    out = {k: max((getattr(e.stats, k) for e in explorers), default=0)
+           for k in ("specialized", "spec_pruned_phases", "blockjit_fallbacks")}
+    out.update({k: sum(getattr(e.stats, k) for e in explorers)
+                for k in ("spec_fused_steps", "blockjit_steps", "blockjit_blocks",
+                          "spec_fallbacks")})
+    out["specialize_failed"] = sum(e.specialize_failed for e in explorers)
+    return out
 
 
 def walk_lines(results):
@@ -2572,6 +3022,7 @@ def vendored_ladder_run(out_path, device=None):
         "replayed": replayed, "not_replayed": not_replayed,
         "walk_not_replayed": walk_not_replayed,
         "static": static_counters(explorers), "walks": walk_lines(results),
+        "spec": spec_counters(explorers),
         "static_answered": sorted(r["name"] for r in results if r.get("static_answered")),
         "static_prune": args.static_prune, "static_answer": args.static_answer,
         "degraded": resilience.DegradationLog().counts}))
@@ -2606,13 +3057,15 @@ def analyze_cli_checks(card):
         raise SystemExit(f"analyze cli: the milestone corpus gave exit {rc}, {sorted(got)}, "
                          f"stderr {err[0][-2000:]!r}; want both owned and {sorted(want)}, "
                          f"CLEAN statically answered")
-    for name, code in MILESTONE:
-        rc, out, secs = analyze_cli("--bin-runtime", "-c", code, "-t", "2", "-o", "json")
+    # each contract alone, one on the generic kernel and one on the
+    # fuse-only kernels: the same issues as the default's
+    for (name, code), flag in zip(MILESTONE, ("--no-specialize", "--no-blockjit")):
+        rc, out, secs = analyze_cli("--bin-runtime", "-c", code, "-t", "2", "-o", "json", flag)
         issues = [(i["swc-id"], i["address"], i["title"], i["severity"], i["function"])
                   for i in json.loads(out)["issues"]]
-        log(f"[analyze cli] -c {code}: exit {rc}, {secs:.1f} s, issues {issues}")
+        log(f"[analyze cli] -c {code} {flag}: exit {rc}, {secs:.1f} s, issues {issues}")
         if rc != 0 or issues != [ANALYZE_SWC[name] + ("fallback",)]:
-            raise SystemExit(f"analyze cli: -c {code} gave exit {rc}, {issues}")
+            raise SystemExit(f"analyze cli: -c {code} {flag} gave exit {rc}, {issues}")
     # every contract walked on the host: the same issues, nothing owned
     rc, out, secs = analyze_cli("--bin-runtime", "-c", MILESTONE[0][1], "-t", "2", "-o",
                                 "json", "--device-ownership", "never")
@@ -2700,6 +3153,11 @@ def analyze_pinned_ladder(card):
     log(f"[analyze a] static pass (static_prune {got['static_prune']}, static_answer "
         f"{got['static_answer']}): {got['static']} (JAX pin {pin['static']}), statically "
         f"answered {got['static_answered']} (JAX pin {pin['static_answered']})")
+    log(f"[analyze a] specialization: {got['spec']} (JAX pin {pin['specialized']})")
+    if any(got["spec"][k] != v for k, v in pin["specialized"].items()) \
+            or got["spec"]["specialize_failed"]:
+        raise SystemExit(f"analyze (a): the explorer's specialization {got['spec']} differs "
+                         f"from the JAX pin's {pin['specialized']}")
     for name, w in got["walks"].items():
         log(f"[analyze a] walk {name}: {w['walk_s']} s, {w['states']} states, "
             f"{w['mounted']} modules mounted, skipped {w['skipped']}")
@@ -2717,7 +3175,7 @@ def analyze_pinned_ladder(card):
                          f"degradations {got['degraded']}")
     # enumeration only: portfolio_eval launches only where a query's
     # space is small enough to enumerate, which none of these may be
-    for name in PATH_KERNELS:
+    for name in PATH_KERNELS + ("block_substep",):
         if not got["launches"][name]:
             raise SystemExit(f"analyze (a): the vendored corpus never launched {name}")
 
@@ -2782,6 +3240,7 @@ def analyze_default(card):
     invalid = querylog.loss_reasons(since=losses).get(querylog.LOSS_WITNESS_INVALID, 0)
     walk_s = spent["walk"]
     static = static_counters(explorers)
+    spec = spec_counters(explorers)
     answered = sorted(r["name"] for r in results if r.get("static_answered"))
     # the race gate, in a corpus of its own (its lanes and budget would
     # change the 13's exploration), under --device-ownership never, its
@@ -2852,6 +3311,11 @@ def analyze_default(card):
     log(f"[analyze b] static pass (static_prune {args.static_prune}, static_answer "
         f"{args.static_answer}): {static}, statically answered {len(answered)} of {len(rows)} "
         f"{answered}")
+    log(f"[analyze b] specialization (specialize {args.specialize}, blockjit "
+        f"{args.blockjit}): {spec} (JAX pin {pin['specialized']})")
+    if any(spec[k] != v for k, v in pin["specialized"].items()) or spec["specialize_failed"]:
+        raise SystemExit(f"analyze (b): the explorer's specialization {spec} differs from "
+                         f"the JAX pin's {pin['specialized']}")
     walks = walk_lines(results)
     for name, w in walks.items():
         log(f"[analyze b] walk {name}: {w['walk_s']} s, {w['states']} states, "
@@ -2877,7 +3341,7 @@ def analyze_default(card):
         raise SystemExit(f"analyze (b): the walk's races {races}, the race gate's {gate_races}, "
                          f"invalid witnesses {invalid}: want the gate to start one, no error, "
                          f"none invalid")
-    for name in EXPLORE_KERNELS:
+    for name in EXPLORE_KERNELS + ("block_substep",):
         if not launches[name]:
             raise SystemExit(f"analyze (b): the vendored corpus never launched {name}")
     # a race is at most one search on the card (portfolio.device_check:
@@ -3411,6 +3875,9 @@ def main() -> int:
     if args == ["--solver"]:
         phase_solver(card, phase_sym_parity())
         return 0
+    if args == ["--specialize"]:
+        phase_specialize(card)
+        return 0
     walls = {}
 
     def phase(name, fn, *a):
@@ -3424,6 +3891,8 @@ def main() -> int:
     phase("profile", phase_profile, card, main_path["wall"] / main_path["steps"] * 1e3)
     phase("bignum", phase_bignum, card)
     sym_wave = phase("symbolic wave", phase_wave, card)
+    spec = phase("specialize", phase_specialize, card)
+    kern.update(spec["kern"])
     flips = phase("symbolic parity", phase_sym_parity)
     solver = phase("solver", phase_solver, card, flips)
     flip = phase("flip frontier", phase_flip, card, sym_wave["frontier"])
@@ -3449,14 +3918,20 @@ def main() -> int:
                            "mythril_tpu/laser/smt/solver/portfolio.py:517"),
         "portfolio_sls": ("mythril_tpu_torch/csrc/portfolio_sls.cu",
                           "mythril_tpu/laser/smt/solver/portfolio.py:635"),
+        "fused_substep": ("mythril_tpu_torch/csrc/substep.cu",
+                          "mythril_tpu/laser/batch/specialize.py:309 (and :423)"),
+        "block_substep": ("mythril_tpu_torch/csrc/substep.cu",
+                          "mythril_tpu/laser/batch/blockjit.py:368 (and :598)"),
     }
     report = {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": where[name][0],
         "replaces": where[name][1],
-        "on_path": name in PATH_KERNELS + FLIP_KERNELS,
+        "on_path": name in PATH_KERNELS + FLIP_KERNELS + SPEC_KERNELS,
         "launches": main_path["launches"][name],
+        # the 5b wave of the substep kernel's mode (SpecializedKernel.sym_run)
+        **({"launches_spec_wave": spec["launches"][name]} if name in SPEC_KERNELS else {}),
         "launches_symbolic_wave": sym_wave["launches"][name],
         "launches_flip": flip["launches"][name],
         "launches_explore": explore["launches"][name],

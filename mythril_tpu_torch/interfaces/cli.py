@@ -23,7 +23,12 @@ keeps every solver race on the CPU. The static pass (analysis/static)
 runs on every `analyze`, as in the JAX package: it answers contracts no
 detection module can fire on, prunes the exploration and screens the
 walk's modules; `--no-static-prune` turns all of it off and
-`--no-static-answer` the answering alone.
+`--no-static-answer` the answering alone. The explorer's waves run the
+contract-specialized loop (phase pruning, and block or fused substeps,
+one kernel launch an iteration), as in the JAX package:
+`--no-specialize` restores the generic kernel and `--no-blockjit` the
+fuse-only one. A specialization setup that fails on the host is printed
+as `degraded: specialize-failed`.
 
 `lint` runs the static pass and nothing else (CFG and prune statistics,
 the detector screen and the static findings, as text or json), and
@@ -164,6 +169,20 @@ def build_parser() -> argparse.ArgumentParser:
         "exploration and walk anyway",
     )
     analyze.add_argument(
+        "--no-specialize", action="store_true",
+        help="Disable per-contract specialized step kernels (opcode-set "
+        "phase pruning + superblock fusion from the static summary): device "
+        "waves run the generic opcode-switch interpreter — the differential "
+        "baseline for a suspected specialization bug",
+    )
+    analyze.add_argument(
+        "--no-blockjit", action="store_true",
+        help="Disable the block-level JIT (whole CFG basic blocks advanced "
+        "per kernel iteration): specialized kernels fall back to superblock "
+        "fusion only — the differential baseline for a suspected "
+        "block-lowering bug (env: MYTHRIL_NO_BLOCKJIT=1)",
+    )
+    analyze.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="run on the card (cuda, the default) or the plain PyTorch "
         "versions on the CPU",
@@ -287,6 +306,8 @@ def run_analyze(args) -> int:
     flags.iprof = args.enable_iprof
     flags.static_prune = not args.no_static_prune
     flags.static_answer = not args.no_static_answer
+    flags.specialize = not args.no_specialize
+    flags.blockjit = not args.no_blockjit
     StartTime()
     contracts = [EVMContract(code=code, name=name) for name, code in codes]
     marker = resilience.DegradationLog().marker()

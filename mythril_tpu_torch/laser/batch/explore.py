@@ -51,9 +51,16 @@ counter hash here, threefry there). What changes:
   off) prunes the flip frontier and the dispatcher seeds as in the JAX
   package; a contract whose pass raises explores unpruned and is
   recorded (`static-prepass-failed`, counted in `static_failed`);
-- not ported, and refused rather than skipped: kernel specialization and
-  blockjit (`specialize=True`), the multi-device mesh (`n_devices > 1`,
-  `devices` of more than one card). Also left out: the metrics
+- kernel specialization and blockjit (specialize.py, blockjit.py; on
+  unless `args.specialize` is off, as in the JAX package): the waves run
+  the corpus's union bucket, each loop iteration one pruned full step
+  plus its substeps in one launch of `csrc/substep.cu`; the retry ladder
+  re-dispatches on the generic kernel. A host-side setup failure falls
+  back to the generic kernel as in the JAX package, but is recorded
+  (`specialize-failed`, counted in `specialize_failed`), not only
+  logged;
+- not ported, and refused rather than skipped: the multi-device mesh
+  (`n_devices > 1`, `devices` of more than one card). Also left out: the metrics
   registry (`publish_explore_stats`, `solverstats.record_query`), the
   frontier steal protocol (`export_frontier`, `seed_frontier`) and the
   persistent compile cache.
@@ -922,7 +929,8 @@ class _WavePayload:
 class _Inflight:
     """A dispatched, not-yet-harvested wave: `future` runs on the
     explorer's wave thread (the pipelined schedule), or the wave ran
-    inline and `result` holds (out, steps, active lane-steps, view)."""
+    inline and `result` holds (out, steps, active lane-steps, view,
+    times, substep counts)."""
 
     __slots__ = ("payload", "future", "result", "dispatch_t", "failed")
 
@@ -978,13 +986,6 @@ class DeviceCorpusExplorer:
             raise NotImplementedError(
                 "the multi-device mesh is not ported: the explorer runs "
                 "on one card"
-            )
-        if specialize is None:
-            specialize = bool(getattr(_flags, "specialize", False))
-        if specialize:
-            raise NotImplementedError(
-                "kernel specialization and blockjit are not ported: pass "
-                "specialize=False"
             )
         self.device = resolve_device(
             devices[0] if devices is not None and len(devices) else device
@@ -1099,6 +1100,75 @@ class DeviceCorpusExplorer:
         self.code_ids = np.repeat(
             np.arange(len(self.codes), dtype=np.int32), lanes_per_contract
         )
+        #: 1 when the specialization setup raised on the host and the
+        #: waves run the generic kernel (recorded `specialize-failed`;
+        #: port-only, beside `static_failed`)
+        self.specialize_failed = 0
+        self._kernel = None
+        self._fuse_tbl = None
+        self.kernel_phases = None
+        self._attach_specialized_kernel(specialize, cap)
+
+    # -- kernel specialization -----------------------------------------
+    def _attach_specialized_kernel(self, specialize: Optional[bool], cap: int) -> None:
+        """Per-track opcode signatures (the static summary's when one is
+        attached, a linear sweep otherwise) union into ONE wave bucket,
+        with the block-program table (blockjit on and profitable) or
+        the fuse table beside the code table. --no-specialize leaves the
+        generic kernel. A host-side failure here falls back to the
+        generic kernel, as in the JAX package, and is recorded as
+        `specialize-failed`; the table's upload to the card is outside
+        the fallback, and so is every launch."""
+        from mythril_tpu_torch.laser.batch import specialize as _spec
+
+        if specialize is None:
+            specialize = _spec.specialize_enabled()
+        if not specialize:
+            return
+        from mythril_tpu_torch.laser.batch import blockjit as _bj
+
+        try:
+            resilience.inject("explore.specialize")
+            blockjit_on = _bj.blockjit_enabled()
+            for track, code in zip(self.tracks, self.codes):
+                track.phases = _spec.phases_for(
+                    _spec.signature_for(code, track.static),
+                    fuse=_spec.fuse_profitable(code, track.static),
+                    block_depth=(
+                        _bj.block_depth_for(code, track.static) if blockjit_on else 0
+                    ),
+                )
+            phases = _spec.union_phases([t.phases for t in self.tracks])
+            summaries = [t.static for t in self.tracks]
+            if phases.block_depth > 0:
+                # the block-program table replaces the fuse table: its
+                # rows carry the fusible marks too
+                table = _bj.build_block_table(self.codes, cap, summaries)
+                fallbacks = sum(
+                    _bj.block_stats(code, static)["blocks_unlowered"]
+                    for code, static in zip(self.codes, summaries)
+                )
+            else:
+                table = _spec.build_fuse_table(self.codes, cap, summaries)
+                fallbacks = 0
+        except Exception as why:
+            self.specialize_failed = 1
+            resilience.DegradationLog().record(
+                resilience.DegradationReason.SPECIALIZE_FAILED,
+                site="explorer",
+                detail=f"{type(why).__name__}: {why}; explores on the generic kernel",
+            )
+            return
+        self._fuse_tbl = torch.from_numpy(table).to(self.device)
+        self.kernel_phases = phases
+        self.stats.blockjit_fallbacks = fallbacks
+        cache = _spec.kernel_cache()
+        h0, m0 = cache.hits, cache.misses
+        self._kernel = cache.acquire(phases)
+        self.stats.kernel_cache_hits += cache.hits - h0
+        self.stats.kernel_cache_misses += cache.misses - m0
+        self.stats.specialized = 1
+        self.stats.spec_pruned_phases = len(phases.pruned)
 
     # -- static pre-analysis -------------------------------------------
     def _attach_static_feeds(self) -> int:
@@ -1550,28 +1620,40 @@ class DeviceCorpusExplorer:
             payload.synthetic,
         )
 
-    def _wave_job(self, payload, carcass):
+    def _wave_job(self, payload, carcass, generic: bool = False):
         """One wave's device work, start to end: seed it (in place into
-        `carcass` when there is one, else cold), run it, read it back.
-        Returns (out, steps, active lane-steps, ArenaView, times: ms of
-        the seeding, the run and the readback, and whether the seeding
-        reused a spent wave's buffers). The view's fetch synchronizes
-        the stream the wave ran on, so a CUDA fault of the wave surfaces
-        here, inside the caller's containment."""
+        `carcass` when there is one, else cold), run it on the
+        specialized kernel (unless `generic`, or there is none), read it
+        back. Returns (out, steps, active lane-steps, ArenaView, times:
+        ms of the seeding, the run and the readback, and whether the
+        seeding reused a spent wave's buffers, and (substep lane-steps,
+        blocks entered) of a specialized run, else None). The view's
+        fetch synchronizes the stream the wave ran on, so a CUDA fault
+        of the wave surfaces here, inside the caller's containment."""
         t0 = time.perf_counter()
         sym = self._cold_sym(payload) if carcass is None else self._warm_sym(
             payload, carcass
         )
         t1 = time.perf_counter()
-        out, steps, active = sym_run_inplace(
-            sym, self.code_table, max_steps=self.steps_per_wave
-        )
+        sub = None
+        if self._kernel is not None and not generic:
+            # the contract-specialized kernel: pruned phases + block or
+            # fused substeps (specialize.py, blockjit.py)
+            out, steps, active, fused, blocks = self._kernel.sym_run(
+                sym, self.code_table, self._fuse_tbl,
+                max_steps=self.steps_per_wave, donate=True,
+            )
+            sub = (int(fused), int(blocks))
+        else:
+            out, steps, active = sym_run_inplace(
+                sym, self.code_table, max_steps=self.steps_per_wave
+            )
         t2 = time.perf_counter()
         view = ArenaView(out)
         t3 = time.perf_counter()
         times = {"seed_ms": (t1 - t0) * 1e3, "run_ms": (t2 - t1) * 1e3,
                  "readback_ms": (t3 - t2) * 1e3, "warm": carcass is not None}
-        return out, steps, int(active), view, times
+        return out, steps, int(active), view, times, sub
 
     def _on_wave_thread(self, fn):
         """Run `fn` where the waves run: on the pipelined schedule, the
@@ -1625,11 +1707,15 @@ class DeviceCorpusExplorer:
         faulted: cold re-dispatch from the retained host payload (the
         in-place warm path cannot replay — its input buffers are
         spent), synchronous, attributed to the faulted wave's serial,
-        on the explorer's own device (never the CPU)."""
+        on the explorer's own device (never the CPU). Retries always run
+        the GENERIC kernel: a fault on a specialized dispatch is not
+        retried into the same specialized loop."""
+        if self._kernel is not None:
+            self.stats.spec_fallbacks += 1
 
         def _cold():
             future, result = self._on_wave_thread(
-                lambda: self._wave_job(fl.payload, None)
+                lambda: self._wave_job(fl.payload, None, generic=True)
             )
             return result if future is None else future.result()
 
@@ -1651,7 +1737,7 @@ class DeviceCorpusExplorer:
                 try:
                     result = fl.result if fl.future is None else fl.future.result()
                     resilience.inject("device.dispatch")
-                    out, steps, active, view, times = result
+                    out, steps, active, view, times, sub = result
                 except Exception as why:
                     if not resilience.is_device_fault(why):
                         raise
@@ -1661,9 +1747,9 @@ class DeviceCorpusExplorer:
                         detail=str(why),
                     )
                     self._carcass = None
-                    out, steps, active, view, times = self._retry_wave(fl)
+                    out, steps, active, view, times, sub = self._retry_wave(fl)
             else:
-                out, steps, active, view, times = self._retry_wave(fl)
+                out, steps, active, view, times, sub = self._retry_wave(fl)
         now = time.perf_counter()
         self.stats.device_wait_s += now - wait0
         if fl.dispatch_t is not None:
@@ -1683,6 +1769,16 @@ class DeviceCorpusExplorer:
         self.stats.arena_nodes = max(self.stats.arena_nodes, view.count)
         self.stats.waves += 1
         self.stats.device_steps += int(active)
+        if sub is not None:
+            # instructions the substeps advanced beyond the full steps'
+            # active count: a block wave counts into blockjit_steps, a
+            # fuse-only wave into spec_fused_steps, never both
+            fused, blocks = sub
+            if self.kernel_phases.block_depth > 0:
+                self.stats.blockjit_steps += fused
+                self.stats.blockjit_blocks += blocks
+            else:
+                self.stats.spec_fused_steps += fused
         self.stats.device_steps_raw += int(steps) * len(fl.payload.flat)
         self.stats.evidence_bytes += view.bytes_fetched
         self.stats.evidence_bytes_full += view.bytes_full
@@ -2533,6 +2629,11 @@ class DeviceCorpusExplorer:
                 # outcomes must never race their own checkpoints; close
                 # also retires the worker thread
                 self._ckpt_writer.close()
+            if self._kernel is not None:
+                # unpin this run's bucket (the cache may now evict it)
+                from mythril_tpu_torch.laser.batch.specialize import kernel_cache
+
+                kernel_cache().release(self._kernel)
             DEVICE_BUSY.release()
 
     def _run_phases(self) -> Dict:
@@ -2655,6 +2756,9 @@ class DeviceCorpusExplorer:
         self.stats.device_wait_s = round(self.stats.device_wait_s, 3)
         self.stats.device_busy_s = round(self.stats.device_busy_s, 3)
         self.stats.wave_overlap_s = round(self.stats.wave_overlap_s, 3)
+        if self._kernel is not None:
+            # the bucket's first-call wall (0 once warm)
+            self.stats.kernel_compile_s = round(self._kernel.compile_s, 3)
         stats = self.stats.as_dict()
         if self._halt_reason:
             # WHY the run ended early (deadline-expired / interrupted /

@@ -3,6 +3,9 @@
 The JAX package's `_run_impl` runs the step under one jit'd
 `lax.while_loop`. Here the loop is Python: while `i < max_steps` and any
 lane is RUNNING (one host read per iteration), run `unroll` steps.
+`phases` (a step.PhaseSet) prunes handler phases as in the JAX
+package's `run(phases=)`; the specialized loops with substeps are
+laser/batch/specialize.py's.
 
 `wave_run` is the generic wave entry (the JAX package's, less its
 compile-plane lookup, which waits for the port's compile cache) and
@@ -23,7 +26,7 @@ def _any_running(batch: StateBatch) -> bool:
 
 
 def run(batch: StateBatch, code: CodeTable, max_steps: int = 4096,
-        unroll: int = 1, track_coverage: bool = True):
+        unroll: int = 1, track_coverage: bool = True, phases=None):
     """Run all lanes to completion (or step budget). Returns
     (final_batch, steps_executed).
 
@@ -34,17 +37,18 @@ def run(batch: StateBatch, code: CodeTable, max_steps: int = 4096,
     i = 0
     while i < max_steps and _any_running(b):
         for _ in range(unroll):
-            b = step(b, code, track_coverage=track_coverage)
+            b = step(b, code, track_coverage=track_coverage, phases=phases)
         i += unroll
     return b, i
 
 
 def wave_run(batch: StateBatch, code: CodeTable, max_steps: int = 4096,
-             unroll: int = 1, track_coverage: bool = True):
-    """The generic wave entry: `run`, bit for bit. (The JAX package's
-    consults its compile plane first; the port has none yet.)"""
+             unroll: int = 1, track_coverage: bool = True, phases=None):
+    """The wave entry: `run`, bit for bit, `phases` passed through. (The
+    JAX package's consults its compile plane first; the port has none
+    yet.)"""
     return run(batch, code, max_steps=max_steps, unroll=unroll,
-               track_coverage=track_coverage)
+               track_coverage=track_coverage, phases=phases)
 
 
 def _sync(batch: StateBatch) -> None:

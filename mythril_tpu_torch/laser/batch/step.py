@@ -35,9 +35,18 @@ bit for bit. What changes is how the work is scheduled:
 Unknown opcodes mark the lane INVALID; opcodes outside the device set
 (CREATE family, EXTCODECOPY/HASH, subroutines, and calls that may reach
 code) mark UNSUPPORTED so that a host engine can take the lane over.
+
+`phases` (a `PhaseSet`, built by laser/batch/specialize.py from a
+contract's opcode signature) prunes handler phases as in the JAX
+package: an opcode whose phase is pruned is unhandled, and a lane that
+reaches it is parked UNSUPPORTED at the instruction, never advanced.
+Its handler then never runs, as the presence gate never sees it.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -128,6 +137,128 @@ for _name, (_byte, _pops, _pushes, _gmin, _gmax) in OPCODES.items():
 _CONSTS: dict = {}
 
 
+# ---------------------------------------------------------------------------
+# kernel specialization: phase switches (the JAX package's, by name)
+# ---------------------------------------------------------------------------
+
+
+class PhaseSet(NamedTuple):
+    """Hashable phase switches: all True is the generic step.
+    `fuse_depth` > 1 runs that many - 1 fused substeps after each full
+    step (specialize.py); `block_depth` > 0 runs that many block
+    substeps instead (blockjit.py). Both are part of the
+    specialization-bucket key."""
+
+    calls: bool = True
+    extcodesize: bool = True
+    returndatacopy: bool = True
+    arith: bool = True
+    cmp: bool = True
+    bits: bool = True
+    shifts: bool = True
+    div: bool = True
+    modops: bool = True
+    exp: bool = True
+    env_block: bool = True
+    env_tx: bool = True
+    env_info: bool = True
+    calldataload: bool = True
+    sha3: bool = True
+    mload: bool = True
+    mstore: bool = True
+    mstore8: bool = True
+    copy: bool = True
+    sload: bool = True
+    sstore: bool = True
+    logs: bool = True
+    selfdestruct: bool = True
+    fuse_depth: int = 0
+    block_depth: int = 0
+
+    @property
+    def pruned(self):
+        """Names of the phases this kernel elides."""
+        return tuple(name for name in PHASE_FLAGS if not getattr(self, name))
+
+
+#: the boolean phase fields, in declaration order
+PHASE_FLAGS = tuple(
+    name for name in PhaseSet._fields if name not in ("fuse_depth", "block_depth"))
+
+#: phase flag -> the opcode names that phase (and only that phase)
+#: handles. Ops in no group (STOP/RETURN/REVERT/JUMP/JUMPI/JUMPDEST/POP/
+#: PUSH/DUP/SWAP, ASSERT_FAIL) are structural and never pruned.
+PHASE_OPS = {
+    "calls": ["CALL", "CALLCODE", "DELEGATECALL", "STATICCALL"],
+    "extcodesize": ["EXTCODESIZE"],
+    "returndatacopy": ["RETURNDATACOPY"],
+    "arith": ["ADD", "SUB", "MUL"],
+    "cmp": ["LT", "GT", "SLT", "SGT", "EQ", "ISZERO"],
+    "bits": ["AND", "OR", "XOR", "NOT"],
+    "shifts": ["BYTE", "SHL", "SHR", "SAR", "SIGNEXTEND"],
+    "div": ["DIV", "SDIV", "MOD", "SMOD"],
+    "modops": ["ADDMOD", "MULMOD"],
+    "exp": ["EXP"],
+    "env_block": [
+        "TIMESTAMP", "NUMBER", "COINBASE", "DIFFICULTY", "GASLIMIT",
+        "CHAINID", "BASEFEE", "BLOCKHASH",
+    ],
+    "env_tx": [
+        "ADDRESS", "CALLER", "ORIGIN", "CALLVALUE", "GASPRICE",
+        "SELFBALANCE", "BALANCE",
+    ],
+    "env_info": [
+        "CALLDATASIZE", "CODESIZE", "RETURNDATASIZE", "MSIZE", "PC", "GAS",
+    ],
+    "calldataload": ["CALLDATALOAD"],
+    "sha3": ["SHA3"],
+    "mload": ["MLOAD"],
+    "mstore": ["MSTORE"],
+    "mstore8": ["MSTORE8"],
+    "copy": ["CALLDATACOPY", "CODECOPY"],
+    "sload": ["SLOAD"],
+    "sstore": ["SSTORE"],
+    "logs": ["LOG0", "LOG1", "LOG2", "LOG3", "LOG4"],
+    "selfdestruct": ["SUICIDE"],
+}
+
+#: the generic (nothing pruned, no substeps) kernel
+GENERIC_PHASES = PhaseSet()
+
+
+def _on(phases: Optional[PhaseSet], name: str) -> bool:
+    """Phase switch: None means the generic kernel."""
+    return phases is None or getattr(phases, name)
+
+
+@functools.lru_cache(maxsize=None)
+def _unhandled_table(phases: PhaseSet) -> np.ndarray:
+    """bool[256]: opcodes whose handler phase `phases` prunes. A lane
+    that reaches one (a wrong or stale signature; a sound one makes this
+    dead code) is parked UNSUPPORTED for the host to re-execute."""
+    table = np.zeros(256, dtype=bool)
+    for flag, names in PHASE_OPS.items():
+        if not getattr(phases, flag):
+            for opname in names:
+                table[_B[opname]] = True
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def _unhandled_bytes(phases: PhaseSet) -> frozenset:
+    """The opcodes of `_unhandled_table`, as a set."""
+    return frozenset(int(i) for i in np.flatnonzero(_unhandled_table(phases)))
+
+
+def _unhandled(phases: PhaseSet, device) -> torch.Tensor:
+    """`_unhandled_table(phases)` as a bool tensor on `device`."""
+    key = ("unhandled", phases, device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(_unhandled_table(phases), device=device)
+    return t
+
+
 def _meta(device) -> torch.Tensor:
     t = _CONSTS.get(device)
     if t is None:
@@ -212,7 +343,8 @@ BIGOFF = 1 << 29  # stands in for any offset/len >= 2**31
 
 
 def step(batch: StateBatch, code: CodeTable,
-         track_coverage: bool = True, present: frozenset = None) -> StateBatch:
+         track_coverage: bool = True, present: frozenset = None,
+         phases: Optional[PhaseSet] = None) -> StateBatch:
     """Execute one instruction on every live lane.
 
     Updates `batch.stack`, `mem`, `storage_keys`, `storage_vals`,
@@ -222,7 +354,9 @@ def step(batch: StateBatch, code: CodeTable,
     `present` is the set of opcodes that gates the handlers. None reads
     it from the card (`_present`, one host read). A caller that has read
     it already (the symbolic step) passes it; any superset of the
-    opcodes executing lanes run gives the same result."""
+    opcodes executing lanes run gives the same result.
+
+    `phases` prunes handler phases (None: the generic step)."""
     n = batch.pc.shape[0]
     dev = batch.pc.device
     mem_cap = batch.mem.shape[1]
@@ -268,11 +402,23 @@ def step(batch: StateBatch, code: CodeTable,
     is_unsupported = live & valid & ~supported & (op != INVALID_OP)
     is_unsupported = is_unsupported | (
         live & valid & supported & ~underflow & cap_degrade)
+    pruned = phases is not None and bool(phases.pruned)
+    if pruned:
+        # the specialization safety net: a pruned phase's opcode parks
+        # the lane UNSUPPORTED at the instruction
+        unhandled = _unhandled(phases, dev)[op.long()]
+        is_unsupported = is_unsupported | (
+            live & valid & supported & ~underflow & ~cap_degrade & unhandled)
     stack_err = live & valid & supported & (underflow | overflow)
     ex = (live & valid & supported & ~stack_err & ~cap_degrade
           & (op != INVALID_OP))  # executing
+    if pruned:
+        ex = ex & ~unhandled
     if present is None:
         present = _present(op, ex)
+    elif pruned:
+        # a caller's set may hold pruned opcodes no lane executes
+        present = present - _unhandled_bytes(phases)
 
     def on(*ops):
         return any(o in present for o in ops)

@@ -39,7 +39,10 @@ the concrete step (step.py):
   and arena rows past ARENA_CAP are dropped by a mask (the JAX kernel's
   `mode="drop"`).
 
-PhaseSet specialisation (`phases`) is not ported: `phases` must be None.
+`phases` (a step.PhaseSet) prunes handler phases from the concrete step
+and this shadow pass as in the JAX package: each shadow handler the JAX
+kernel leaves out of a specialized trace (`step._on`) is skipped here
+too, whatever the presence set holds.
 """
 
 from __future__ import annotations
@@ -297,15 +300,34 @@ def _arena_append(symb: SymBatch, mk_row, columns):
     return ok, (rows + 1).to(torch.int32)
 
 
+def _kept_env_leaves(phases):
+    """ENV_LEAF_OPS restricted to the phases this kernel keeps (ORIGIN
+    rides env_tx, the block attributes ride env_block)."""
+    return tuple(
+        name for name in ENV_LEAF_OPS
+        if _stepmod._on(phases, "env_tx" if name == "ORIGIN" else "env_block"))
+
+
+def _env_leaf_mask(names, device) -> torch.Tensor:
+    """bool[256] of the env-leaf ops `names`, on `device`."""
+    key = ("leaves", names, device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(_table(names), device=device)
+    return t
+
+
 def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
     """One instruction on every lane, with the symbolic shadow pass.
 
     Updates the concrete buffers (see `step.step`) and the shadow tables
     of `symb` in place; returns the SymBatch with its other fields
-    replaced. `phases` must be None (the generic kernel)."""
-    if phases is not None:
-        raise NotImplementedError(
-            "PhaseSet specialisation is not ported; sym_step takes phases=None")
+    replaced. `phases` (a step.PhaseSet) prunes handler phases from both
+    passes; None is the generic kernel."""
+
+    def ph(name):
+        return _stepmod._on(phases, name)
+
     pre = symb.base
     n = pre.pc.shape[0]
     if n > ARENA_CAP:
@@ -364,7 +386,7 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
     sload_m = ex & (op == SLOAD)
     sstore_m = ex & (op == SSTORE)
     any_hit = None
-    if on(SLOAD, SSTORE):
+    if on(SLOAD, SSTORE) and (ph("sload") or ph("sstore")):
         s_cap = pre.storage_keys.shape[1]
         slots = torch.arange(s_cap, device=dev)
         hit = (torch.all(pre.storage_keys == a_val[:, None, :], dim=-1)
@@ -379,7 +401,7 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
         s_slot = torch.where(any_hit, last, pre.storage_cnt.clamp(0, s_cap - 1).long())
 
     # --- run the concrete kernel --------------------------------------
-    post = _stepmod.step(pre, code, present=present)
+    post = _stepmod.step(pre, code, present=present, phases=phases)
     # a lane the kernel demoted mid-step (UNSUPPORTED/ERR_MEM) executed
     # nothing: neither the shadow nor the evidence banks may record it
     executed = (post.status != Status.UNSUPPORTED) & (post.status != Status.ERR_MEM)
@@ -393,20 +415,25 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
     un_ok = a_tid >= 0
     # taint-involved binops always get a row, opaque operand or not
     mk_node = bin_sym | (un_sym & un_ok) | cdl_clean
-    mk_env = ex & (meta[:, 8] != 0)
+    # a specialized kernel keeps only the leaves whose env phase it keeps
+    kept_leaves = _kept_env_leaves(phases)
+    if len(kept_leaves) == len(ENV_LEAF_OPS):
+        mk_env = ex & (meta[:, 8] != 0)
+    else:
+        mk_env = ex & _env_leaf_mask(kept_leaves, dev)[op.long()]
     mk_opaque = un_sym & ~un_ok
     tainted_top3 = (a_tid != 0) | (b_tid != 0) | (c_tid != 0)
-    if on(ADDMOD_B, MULMOD_B):
+    if on(ADDMOD_B, MULMOD_B) and ph("modops"):
         mk_opaque = mk_opaque | (ex & (meta[:, 5] != 0) & tainted_top3)
-    if on(CALLDATALOAD):
+    if on(CALLDATALOAD) and ph("calldataload"):
         mk_opaque = mk_opaque | (ex & (op == CALLDATALOAD) & (a_tid != 0))
-    if on(*_CALL_BYTES):
+    if on(*_CALL_BYTES) and ph("calls"):
         mk_opaque = mk_opaque | (ex & (meta[:, 6] != 0)
                                  & (tainted_top3 | (symb.balance_tid != 0)))
-    if on(EXTCODESIZE_B):
+    if on(EXTCODESIZE_B) and ph("extcodesize"):
         mk_opaque = mk_opaque | (ex & (op == EXTCODESIZE_B) & (a_tid != 0))
     balance_tid = symb.balance_tid
-    if on(CALL_B):
+    if on(CALL_B) and ph("calls"):
         # an outgoing CALL of a tainted value taints the balance itself
         balance_tid = torch.where(
             ex & (op == CALL_B) & ((c_tid != 0) | (balance_tid != 0)),
@@ -416,7 +443,7 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
     off_sym = a_tid != 0
     mem_tid = symb.mem_tid
     mload_prop = None
-    if on(MLOAD):
+    if on(MLOAD) and ph("mload"):
         # a uniform 32-byte window of one tid propagates; mixed or
         # symbolically addressed reads are opaque
         mload_m = ex & (op == MLOAD) & ~off_big
@@ -428,7 +455,7 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
         mload_prop = mload_m & w_uniform & ~off_sym
         mload_opq = mload_m & ((~w_uniform & w_any) | (off_sym & w_any))
         mk_opaque = mk_opaque | mload_opq | (ex & (op == MLOAD) & off_big)
-    if on(MSTORE):
+    if on(MSTORE) and ph("mstore"):
         # the value tid over the 32-byte window (opaque when the
         # destination is symbolic), clipped to mem_cap; the scattered
         # window is distinct slots, each written with its final value
@@ -439,11 +466,13 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
         inw = (rel >= 0) & (rel < 32) & mstore_m[:, None]
         mem_tid.scatter_(1, widx, torch.where(inw, st_tid[:, None],
                                               torch.gather(mem_tid, 1, widx)))
-    if on(MSTORE8):
+    if on(MSTORE8) and ph("mstore8"):
         m8_m = ex & (op == MSTORE8) & ~off_big
         slot_write(mem_tid, off_i.long(), m8_m, torch.where(b_tid != 0, OPAQUE, 0).to(i32))
     full_width = _stepmod.FLAG in present
-    if on(CALLDATACOPY, CODECOPY, SHA3) and not full_width:
+    do_copy = on(CALLDATACOPY, CODECOPY) and ph("copy")
+    do_sha = on(SHA3) and ph("sha3")
+    if (do_copy or do_sha) and not full_width:
         # each lane's span lies in the WINDOW bytes from `lo`; gathered
         # after the MSTOREs, and a SHA3 lane's row is not written below
         lo = off_i.clamp(0, mem_cap - win)
@@ -452,7 +481,7 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
         rel = (lo - off_i)[:, None] + cols
         in_span = (rel >= 0) & (rel < span_i[:, None])
         span_tids = torch.gather(mem_tid, 1, span_idx)
-    if on(CALLDATACOPY, CODECOPY):
+    if do_copy:
         # CALLDATACOPY makes the window opaque bytes; CODECOPY writes
         # concrete code bytes, which clears stale taint
         if full_width:
@@ -465,7 +494,7 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
             fill = torch.where(op == CALLDATACOPY, OPAQUE, 0).to(i32)
             mem_tid.scatter_(1, span_idx, torch.where(in_span & copy_m[:, None],
                                                       fill[:, None], span_tids))
-    if on(SHA3):
+    if do_sha:
         # a tainted window (or tainted bounds) makes the digest opaque
         sha_m = ex & is_sha & ~off_big
         if full_width:
@@ -476,7 +505,7 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
         mk_opaque = mk_opaque | sha_tainted
 
     # --- storage taints ------------------------------------------------
-    if on(SSTORE):
+    if on(SSTORE) and ph("sstore"):
         slot_write_many(s_slot, sstore_m, [(symb.sval_tid, b_tid), (symb.skey_tid, a_tid)])
 
     # --- arena append --------------------------------------------------
@@ -485,7 +514,7 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
     if on(*_ARENA_BYTES):
         env_val = torch.zeros_like(a_val)
         for byte_, name in zip(_ENV_LEAF_BYTES, ENV_LEAF_OPS):
-            if on(byte_):
+            if on(byte_) and name in kept_leaves:
                 env_val = m_(op == byte_, getattr(pre, name.lower()), env_val)
         ok, node_tid = _arena_append(symb, mk_row, (
             (symb.ar_op, op),
@@ -506,14 +535,14 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
     # unary results of opaque operands keep the operand's provenance bits
     neg_bits_a = torch.where(a_tid < 0, (-a_tid - 1).clamp(0, 3), 0)
     res_tid = torch.where(un_sym & ~un_ok, -(1 + neg_bits_a), res_tid).to(i32)
-    if on(BLOCKHASH_B):
+    if on(BLOCKHASH_B) and ph("env_block"):
         # predictable-var provenance without a leaf
         res_tid = torch.where(ex & (op == BLOCKHASH_B), -3, res_tid)
     if mload_prop is not None:
         res_tid = torch.where(mload_prop, w_first, res_tid)
-    if on(SLOAD):
+    if on(SLOAD) and ph("sload"):
         res_tid = torch.where(sload_m, sload_tid, res_tid)
-    if on(SELFBALANCE_B):
+    if on(SELFBALANCE_B) and ph("env_tx") and ph("calls"):
         res_tid = torch.where(ex & (op == SELFBALANCE_B) & (balance_tid != 0),
                               OPAQUE, res_tid)
     is_dup = (op >= 0x80) & (op <= 0x8F)
@@ -547,7 +576,7 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
         false = torch.zeros_like(ex)
         wrap_evt = site_evt = opaque_site = call_evt = state_acc = sload_miss = false
         wrap_kind = torch.zeros_like(op)
-        if on(ADD_B, SUB_B, MUL_B):
+        if on(ADD_B, SUB_B, MUL_B) and ph("arith"):
             # a concrete wrap banks regardless of term-ness; sites without
             # one bank as steering targets (node-gated) or opaque sites
             wrap_add = (op == ADD_B) & u256.ult(u256.bit_not(a_val), b_val)
@@ -566,21 +595,25 @@ def sym_step(symb: SymBatch, code: CodeTable, phases=None) -> SymBatch:
                                     torch.where(op == SUB_B, EV_WRAP_SUB, EV_WRAP_MUL)).to(i32)
             wrap_kind = torch.where(site_evt, wrap_kind + 9, wrap_kind)
             wrap_kind = torch.where(opaque_site, EV_SITE_OPAQUE, wrap_kind)
-        # the gas operand saturated to 32 bits (banked with every event)
-        gas32 = a_val[:, 0].to(torch.int64) | (a_val[:, 1].to(torch.int64) << 16)
-        gas_sat = torch.where(torch.any(a_val[:, 2:] != 0, dim=-1), 0xFFFFFFFF, gas32)
+        # the gas operand saturated to 32 bits (banked with every event;
+        # 0 in a kernel whose calls phase is pruned, as in the JAX one)
+        if ph("calls"):
+            gas32 = a_val[:, 0].to(torch.int64) | (a_val[:, 1].to(torch.int64) << 16)
+            gas_sat = torch.where(torch.any(a_val[:, 2:] != 0, dim=-1), 0xFFFFFFFF, gas32)
+        else:
+            gas_sat = torch.zeros_like(op, dtype=torch.int64)
         call_kind = torch.zeros_like(op)
         has_value = false
-        if on(*_CALL_BYTES):
+        if on(*_CALL_BYTES) and ph("calls"):
             call_kind = meta[:, 7]
             has_value = meta[:, 9] != 0
             call_evt = ex & executed & (call_kind != 0)
             call_seen = torch.where(call_evt & (gas_sat > 2300), 1, call_seen).to(i32)
-        if on(SLOAD, SSTORE):
+        if on(SLOAD, SSTORE) and ph("calls"):
             # state access after a gas-forwarding call (reentrancy surface)
             state_acc = (ex & executed & (symb.call_seen != 0)
                          & ((op == SSTORE) | (op == SLOAD)))
-        if on(SLOAD):
+        if on(SLOAD) and ph("sload"):
             sload_miss = ex & executed & sload_m & ~any_hit
 
         evt = wrap_evt | site_evt | opaque_site | call_evt | state_acc | sload_miss
@@ -644,15 +677,13 @@ def sym_run_inplace(symb: SymBatch, code: CodeTable, max_steps: int = 2048,
     count, `active_lane_steps` (a 0-d int64 tensor on the batch's device)
     counts only lanes that were RUNNING when each step executed. The
     loop is Python: one any-RUNNING host read per iteration, as in
-    `run`."""
-    if phases is not None:
-        raise NotImplementedError(
-            "PhaseSet specialisation is not ported; sym_run takes phases=None")
+    `run`. `phases` prunes handler phases (no substeps: those are
+    specialize.py's loop)."""
     active = torch.zeros((), dtype=torch.int64, device=symb.base.pc.device)
     steps = 0
     while steps < max_steps and _any_running(symb.base):
         active += (symb.base.status == Status.RUNNING).sum()
-        symb = sym_step(symb, code)
+        symb = sym_step(symb, code, phases=phases)
         steps += 1
     return symb, steps, active
 

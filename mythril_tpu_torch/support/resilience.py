@@ -94,6 +94,10 @@ class DegradationReason:
     #: explores unpruned, every detection module mounts and the triage
     #: takes the full path, so the report is the unpruned analysis's
     STATIC_PREPASS_FAILED = "static-prepass-failed"
+    #: the explorer's kernel specialization setup (signatures, the
+    #: fuse or block-program table) raised on the host: the waves run
+    #: the generic kernel, whose results the specialized one equals
+    SPECIALIZE_FAILED = "specialize-failed"
     #: a poison job — implicated in repeated wave faults (in-process
     #: strike counter fed by wave-fault attribution plus a
     #: crash-implication strike at journal recovery) — was isolated to

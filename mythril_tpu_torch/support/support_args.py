@@ -7,9 +7,10 @@ layers read so far; each keeps the JAX package's name and meaning.
 
 `static_prune` and `static_answer` default to True, as in the JAX
 package: `analyze` runs the static pass (analysis/static) unless the
-caller passes --no-static-prune. `specialize` defaults to False: kernel
-specialization is not ported, and the explorer raises if it is asked
-for.
+caller passes --no-static-prune. `specialize` and `blockjit` default to
+True, as in the JAX package: the explorer's waves run the
+contract-specialized loop with block substeps unless the caller passes
+--no-specialize or --no-blockjit.
 """
 
 from __future__ import annotations
@@ -58,9 +59,14 @@ class Args(object, metaclass=Singleton):
         # (off under --no-static-prune) plus this knob (CLI
         # --no-static-answer).
         self.static_answer = True
-        # Kernel specialization (laser/batch/specialize.py): not ported;
-        # True makes the explorer raise NotImplementedError.
-        self.specialize = False
+        # Kernel specialization (laser/batch/specialize.py, CLI
+        # --no-specialize): per-contract phase pruning plus superblock
+        # fusion in the explorer's waves. On by default.
+        self.specialize = True
+        # Block-level JIT (laser/batch/blockjit.py, CLI --no-blockjit,
+        # env MYTHRIL_NO_BLOCKJIT): block substeps instead of fused ones
+        # where the contracts' lowered density pays. On by default.
+        self.blockjit = True
         # Pipelined wave engine: up to two waves in flight, the host's
         # evidence consume and flip solving overlapping the card's
         # execution of the next wave. Off = the lock-step schedule.

@@ -136,15 +136,19 @@ def enum_only_solver(pf, **kw):
 def ladder_off():
     """The port's host ladder off, deterministic solving on and static
     pruning off for the module, as the pins were made (the walk's
-    queries then race nothing)."""
+    queries then race nothing); specialization and blockjit off, as on
+    the JAX side of the pins (the suite's conftest turns them off
+    there)."""
     from mythril_tpu_torch.support.support_args import args
 
-    saved = args.sprint_cap_s, args.deterministic_solving, args.static_prune
-    args.sprint_cap_s = 0.0
-    args.deterministic_solving = True
-    args.static_prune = False
+    names = ("sprint_cap_s", "deterministic_solving", "static_prune", "specialize",
+             "blockjit")
+    saved = [getattr(args, name) for name in names]
+    for name, value in zip(names, (0.0, True, False, False, False)):
+        setattr(args, name, value)
     yield
-    args.sprint_cap_s, args.deterministic_solving, args.static_prune = saved
+    for name, value in zip(names, saved):
+        setattr(args, name, value)
 
 
 @pytest.fixture(scope="module")
@@ -456,7 +460,7 @@ def test_cli_exits_1_on_a_contract_it_does_not_own(tmp_path, capsys, monkeypatch
     from mythril_tpu_torch.interfaces import cli
     from mythril_tpu_torch.support.support_args import args
 
-    for flag in ("static_prune", "static_answer"):  # the CLI sets them
+    for flag in ("static_prune", "static_answer", "specialize", "blockjit"):  # the CLI sets them
         monkeypatch.setattr(args, flag, getattr(args, flag))
     a, b = tmp_path / "assert.hex", tmp_path / "degrader.hex"
     a.write_text(ALWAYS_ASSERT + "\n")
@@ -607,7 +611,9 @@ def pin_vendored_ladder() -> None:
     with the run's host_sat. Static pruning and the static-answer triage
     are on, the JAX package's defaults (`_static_triage` first, its
     answered rows kept out of the prepass, as its analyze_corpus does),
-    and the pin records the explorer's static counters."""
+    and so are kernel specialization and blockjit (the explorer's waves
+    run the corpus's specialized bucket); the pin records the explorer's
+    static counters and its specialization bucket's."""
     import time
 
     import conftest  # noqa: F401
@@ -628,9 +634,10 @@ def pin_vendored_ladder() -> None:
         mp.setattr(jax_explore.DeviceCorpusExplorer, "_sprint_cap_s",
                    lambda self: VENDORED_LADDER_CAP_S)
         mp.setattr(jax_args, "deterministic_solving", True)
-        # the JAX defaults (the suite's conftest turns the answer tier off)
-        mp.setattr(jax_args, "static_prune", True)
-        mp.setattr(jax_args, "static_answer", True)
+        # the JAX defaults (the suite's conftest turns the answer tier,
+        # specialization and blockjit off)
+        for flag in ("static_prune", "static_answer", "specialize", "blockjit"):
+            mp.setattr(jax_args, flag, True)
         jax_solver.reset_blast_session()
         jax_model.clear_cache()
         base = jax_explore.DeviceCorpusExplorer
@@ -673,10 +680,13 @@ def pin_vendored_ladder() -> None:
                         "sprint_cap_s": VENDORED_LADDER_CAP_S,
                         "deterministic_solving": True, "budget_s": None,
                         "solver": "enumeration only", "host_walk": "bfs, JAX defaults",
-                        "static_prune": True, "static_answer": True},
+                        "static_prune": True, "static_answer": True,
+                        "specialize": True, "blockjit": True},
            "host_sat": stats.get("host_sat"),
            "static": {k: stats.get(k) for k in ("static_summaries", "static_pruned_flips",
                                                 "static_seeds_dropped")},
+           "specialized": {k: stats.get(k) for k in ("specialized", "spec_pruned_phases",
+                                                     "blockjit_fallbacks")},
            "static_answered": sorted(rows[i][2] for i in answers),
            "contracts": contracts}
     VENDORED_LADDER_PIN.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")

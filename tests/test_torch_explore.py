@@ -142,15 +142,16 @@ def port_run(name, pipeline, trace=False, **over):
 def ladder_off():
     """The port's host ladder off for the module (a zero cap defers
     every device survivor), as the ladder-off pins were made; the
-    ladder-on tests switch it on themselves. The port's static pruning
-    is off too, as on the JAX side of every pin here; the static-on
-    tests switch it on themselves."""
+    ladder-on tests switch it on themselves. The port's static pruning,
+    specialization and blockjit are off too, as on the JAX side of every
+    pin here; the static-on and specialized tests switch them on
+    themselves."""
     from mythril_tpu_torch.support.support_args import args
 
-    saved = args.sprint_cap_s, args.static_prune
-    args.sprint_cap_s, args.static_prune = 0.0, False
+    saved = args.sprint_cap_s, args.static_prune, args.specialize, args.blockjit
+    args.sprint_cap_s, args.static_prune, args.specialize, args.blockjit = 0.0, False, False, False
     yield
-    args.sprint_cap_s, args.static_prune = saved
+    args.sprint_cap_s, args.static_prune, args.specialize, args.blockjit = saved
 
 
 @pytest.fixture(scope="module")
@@ -311,17 +312,29 @@ def test_arena_view_holds_host_copies_only():
 
 
 def test_unported_options_raise(monkeypatch):
-    """The mesh and specialization raise; static pruning, ported, attaches
-    its feed instead: a summary on every track and the statically dead
-    directions (exceptions.sol.o has three), and none with it off."""
+    """The mesh raises; specialization, ported, attaches its kernel (the
+    corpus's union bucket, pinned in the cache, and the block-program
+    table, since exceptions.sol.o's lowered density pays), and static
+    pruning attaches its feed: a summary on every track and the
+    statically dead directions (exceptions.sol.o has three), and none
+    with it off."""
     from mythril_tpu_torch.laser import symbolic_wave
+    from mythril_tpu_torch.laser.batch import blockjit, specialize
     from mythril_tpu_torch.support.support_args import args
 
     with pytest.raises(NotImplementedError, match="mesh"):
         port_explore.DeviceCorpusExplorer([GATED], n_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="specialization"):
-        port_explore.DeviceCorpusExplorer([GATED], specialize=True, device="cpu")
     exceptions = (symbolic_wave.CONTRACTS / "exceptions.sol.o").read_text().strip()
+    monkeypatch.setattr(args, "blockjit", True)
+    spec = port_explore.DeviceCorpusExplorer([GATED, exceptions], specialize=True,
+                                             device="cpu")
+    assert spec._kernel is not None and spec._kernel.refs >= 1
+    assert spec._kernel is specialize.kernel_cache().get(spec.kernel_phases)
+    assert spec.kernel_phases.block_depth == blockjit.BLOCK_DEPTH
+    assert tuple(spec._fuse_tbl.shape) == tuple(spec.code_table.jumpdest.shape)
+    assert (spec.stats.specialized, spec.specialize_failed) == (1, 0)
+    assert spec.stats.spec_pruned_phases == len(spec.kernel_phases.pruned)
+    assert port_explore.DeviceCorpusExplorer([GATED], device="cpu")._kernel is None
     off = port_explore.DeviceCorpusExplorer([GATED, exceptions], device="cpu")
     assert [t.static for t in off.tracks] == [None, None]
     assert off.stats.static_summaries == 0

@@ -43,13 +43,13 @@ GATED = "60003560f81c604214600d57005b600160005500"
 def ladder_off():
     """The port's host ladder off (a zero cap): the device-solve tests
     count the funnel's retries of a query the ladder leaves open. Static
-    pruning off, as on the JAX side."""
+    pruning, specialization and blockjit off, as on the JAX side."""
     from mythril_tpu_torch.support.support_args import args
 
-    saved = args.sprint_cap_s, args.static_prune
-    args.sprint_cap_s, args.static_prune = 0.0, False
+    saved = args.sprint_cap_s, args.static_prune, args.specialize, args.blockjit
+    args.sprint_cap_s, args.static_prune, args.specialize, args.blockjit = 0.0, False, False, False
     yield
-    args.sprint_cap_s, args.static_prune = saved
+    args.sprint_cap_s, args.static_prune, args.specialize, args.blockjit = saved
 
 
 @pytest.fixture(autouse=True)

@@ -6,7 +6,9 @@ wave's flip frontier (`flip_frontier`: harvest, candidates, the term
 decode, `lower`), a `device_solve_batch` of one query (the SMT term
 layer, `compile_program`, enumeration through `portfolio_eval`) and a
 two-contract `DeviceCorpusExplorer` run (laser/batch/explore.py, with
-its resilience, checkpoint, span and capture modules), a one-contract
+its resilience, checkpoint, span and capture modules, on its default
+specialized kernel), a blockjit run of a lowered block (specialize.py,
+blockjit.py and the substep wrapper's plain version), a one-contract
 `analyze_corpus` with its issue synthesis, replay and report in every
 form (analysis/, with the command line's `build_report`), a query
 through the host solver stack (`get_model`: the bit-blaster and the
@@ -74,6 +76,18 @@ res = explore.DeviceCorpusExplorer(["60003560f81c604214600d57005b600160005500", 
                                    device="cpu").run()
 assert res["stats"]["waves"] >= 2, res["stats"]
 assert "selfdestruct" in res["contracts"][1]["triggers"], res["contracts"][1]
+assert res["stats"]["specialized"] == 1, res["stats"]
+import torch
+from mythril_tpu_torch.laser.batch import blockjit, specialize
+from mythril_tpu_torch.ops import substep
+alu = bytes.fromhex("6001600302600701605519168015145000")
+alu_table = make_code_table([alu], device="cpu")
+phases = specialize.phases_for(specialize.signature_for(alu), fuse=False,
+                               block_depth=blockjit.block_depth_for(alu))
+blk = torch.from_numpy(blockjit.build_block_table([alu], alu_table.ops.shape[1] - 33))
+out, steps, subs, blocks = specialize.SpecializedKernel(phases).run(
+    make_batch(2, device="cpu"), alu_table, blk, max_steps=32)
+assert int(subs) > 0 and int(blocks) > 0 and substep.LAUNCHES == 0, (int(subs), int(blocks))
 from mythril_tpu_torch.analysis import corpus, evidence, prepass, replay  # noqa: F401
 from mythril_tpu_torch.analysis.report import Report
 from mythril_tpu_torch.ethereum.evmcontract import EVMContract

@@ -409,6 +409,8 @@ def test_live_waves_prune_as_the_jax_explorer(monkeypatch):
 
     monkeypatch.setattr(port_args, "static_prune", True)
     monkeypatch.setattr(port_args, "sprint_cap_s", 0.0)
+    # the pin's JAX explorer ran the generic kernel (`_jax_setup`)
+    monkeypatch.setattr(port_args, "specialize", False)
     monkeypatch.setattr(port_portfolio, "device_solve_batch",
                         enum_only_solver(port_portfolio, device="cpu"))
     want = json.loads(WAVES_PIN.read_text())

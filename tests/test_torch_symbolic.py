@@ -409,13 +409,29 @@ def test_shadow_adds_no_host_read():
 
 
 def test_specialised_phases_are_not_ported(inputs):
+    """Phase pruning is ported now (tests/test_torch_specialize.py holds
+    it to the JAX package): sym_step and sym_run take a PhaseSet instead
+    of raising; the all-on PhaseSet gives the generic result, every
+    field, and a pruned phase parks its lanes UNSUPPORTED at the op."""
     fields, table = inputs
-    symb = sym.make_sym_batch(interop.batch_from_numpy(fields, device="cpu"))
     code = interop.code_table_from_numpy(table, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sym.sym_step(symb, code, phases=object())
-    with pytest.raises(NotImplementedError):
-        sym.sym_run(symb, code, phases=object())
+
+    def fresh():
+        return sym.make_sym_batch(interop.batch_from_numpy(fields, device="cpu"))
+
+    generic, steps, active = sym.sym_run(fresh(), code, max_steps=64)
+    phased, steps2, active2 = sym.sym_run(fresh(), code, max_steps=64,
+                                          phases=port_step.GENERIC_PHASES)
+    assert (steps, int(active)) == (steps2, int(active2))
+    for name, x, y in zip(generic._fields[1:], generic[1:], phased[1:]):
+        assert torch.equal(x, y), name
+    for name, x, y in zip(generic.base._fields, generic.base, phased.base):
+        assert torch.equal(x, y), name
+    out, *_ = sym.sym_run(fresh(), code, max_steps=64,
+                          phases=port_step.PhaseSet(calldataload=False))
+    at_cdl = code.ops[out.base.code_id.long(), out.base.pc.long()] == port_step.CALLDATALOAD
+    parked = (out.base.status == Status.UNSUPPORTED) & (generic.base.status != Status.UNSUPPORTED)
+    assert bool(parked.any()) and torch.equal(parked, at_cdl & parked)
 
 
 def _seed_delta(n, rng):

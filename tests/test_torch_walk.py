@@ -232,7 +232,8 @@ def test_cli_passes_the_walk_flags(monkeypatch, capsys):
                  "device_complete": False, "owned": False}]
 
     monkeypatch.setattr(port_corpus, "analyze_corpus", record)
-    for flag in ("call_depth_limit", "iprof", "static_prune", "static_answer"):
+    for flag in ("call_depth_limit", "iprof", "static_prune", "static_answer", "specialize",
+                 "blockjit"):
         monkeypatch.setattr(args, flag, getattr(args, flag))
     rc = cli.main(["analyze", "--bin-runtime", "-c", "33ff", "--device", "cpu", "-o", "json",
                    "-m", "TxOrigin, Exceptions", "--strategy", "dfs", "--max-depth", "40",
