@@ -28,6 +28,9 @@
                                             # any other DIR is refused) against
                                             # this one's, at the flip's shapes,
                                             # in the order DIR, this, this, DIR
+    python3 chip_smoke.py --ab-substep DIR  # the same for the substep kernel,
+                                            # at the specialize phase's states
+                                            # (16384 and 416 lanes)
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 non-zero (nothing is caught). They run one at a time, each alone on
@@ -88,12 +91,18 @@ own prepass.
    a fresh batch of the same seeds, and run it;
 5b. specialization (laser/batch/specialize.py, blockjit.py): the substep
    kernel (csrc/substep.cu) in each mode, fuse and block, concrete and
-   symbolic, on the vendored corpus's own buckets (the explorer's: static
-   summaries attached), against its plain version on the same 16384
-   lanes after 8 and after 25 full steps (every field it updates and its
-   counts; 0 mismatches), timed (profiler, each launch from the same
-   state) beside its plain version and its bound (the least bytes this
-   state's executed substeps move, by class: substep_traffic); then the 16384-lane vendored wave on the
+   symbolic, generic and pruned, against its plain version on every lane
+   of tests/torch_substep_cases.py (a lane a hazard) and on its seeded
+   sweep over 16384 lanes (programs that start on each ALU op, SWAPn,
+   DUPn and PUSHn, with random and edge operands); then on the vendored
+   corpus's own buckets (the explorer's: static summaries attached),
+   against its plain version on the same 16384 lanes after 8 and after
+   25 full steps (every field it updates and its counts; 0 mismatches
+   everywhere), timed (profiler, each launch from the same state) beside
+   its plain version and its bound (the least bytes this state's
+   executed substeps move, by class: substep_traffic), and timed with
+   its bound on the first 416 lanes of each state (the analysis' and leg
+   A's lane count); then the 16384-lane vendored wave on the
    generic loop, the fuse-only bucket and the block bucket: iterations,
    wall, ms and CUDA kernels an iteration, active and substep
    lane-steps, blocks entered, and each specialized wave's final state
@@ -298,6 +307,9 @@ ENUM_K = 4096  # device_enumerate's chunk: portfolio_eval's timed shape
 SPEC_CHECK_STEPS = (8, 25)  # full steps before each substep check: straight-line
 # dispatcher code, then lanes inside fusible runs and lowered blocks
 SPEC_REPS = 10  # profiled substep launches per check
+SPEC_ANALYSIS_LANES = 416  # the analysis' and leg A's lanes (13 contracts x 32): the
+# substep kernel is also timed on the first 416 lanes of each checked state
+SWEEP_SEED = 12  # tests/torch_substep_cases.py:sweep_state over LANES lanes
 SPEC_PROFILE_STEPS = 4  # profiled loop iterations of each 5b wave (from iteration 32)
 # the substep kernel's least traffic (substep_traffic): a lane not
 # RUNNING reads its status (4 B); a RUNNING one reads its status, code
@@ -399,7 +411,8 @@ def kernel_ms(fn, kernel, reps):
     """(device ms, call ms) of one call of `fn`: the mean device time of
     the CUDA kernels whose name holds `kernel`, from torch.profiler around
     `reps` calls (another profile, up to PROFILE_TRIES in all, while none
-    of them was seen: a profile sometimes records no kernel of the run;
+    of them was seen: a profile sometimes records no kernel of the run,
+    or only some of them, so the mean is over the launches it recorded;
     None where no profile did), and the median time between CUDA events
     around one call, which also holds the wrapper's host work. The second
     is never a stand-in for the first."""
@@ -416,7 +429,7 @@ def kernel_ms(fn, kernel, reps):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type.name == "CUDA" and kernel in e.name]
         if us:
-            return sum(us) / reps / 1e3, call
+            return sum(us) / len(us) / 1e3, call
     return None, call
 
 
@@ -1401,23 +1414,20 @@ def substep_traffic(base, code, table, phases, tid):
     return nbytes, classes["alu"] * ALU_OPS, classes
 
 
-def check_substep_kernel(card, mode, phases, table, mid, code, symbolic):
-    """One launch of the substep kernel against its plain version on the
-    same 16384 lanes (every updated field and the counts), then its time
-    (profiler, SPEC_REPS launches, each from the same state), the plain
-    version's and the bound for this state's executed substeps
-    (substep_traffic)."""
+def substep_against_plain(base, tid, code, table, phases):
+    """One launch of the substep kernel and its plain version from copies
+    of the same state: (lanes whose updated fields differ, plus 1 if the
+    counts differ; the largest absolute difference; the plain version's
+    counts; the lanes it moved)."""
     import torch
 
     from mythril_tpu_torch.laser.batch.state import StateBatch
     from mythril_tpu_torch.ops import substep
 
-    base = mid.base
-    tid = mid.stack_tid if symbolic else None
     runs = {}
     for kind in ("plain", "kernel"):
         b = StateBatch(*(t.clone() for t in base))
-        t = tid.clone() if symbolic else None
+        t = None if tid is None else tid.clone()
         counts = torch.zeros(2, dtype=torch.int64, device="cuda")
         fn = substep.substep_plain if kind == "plain" else substep.substep_run
         out = fn(b, code, table, phases, counts, stack_tid=t)
@@ -1430,50 +1440,152 @@ def check_substep_kernel(card, mode, phases, table, mid, code, symbolic):
         diff = (got[name].long() - w.long()).reshape(w.shape[0], -1)
         lanes_bad |= (diff != 0).any(dim=1)
         err = max(err, int(diff.abs().max()))
-    mismatches = int(lanes_bad.sum()) + (got_counts != want_counts)
-    executed, heads = want_counts
-    # time: each profiled launch restores the state first (copy kernels,
-    # not counted under the substep kernel's name)
+    moved = int((want["pc"] != base.pc).sum())
+    return int(lanes_bad.sum()) + (got_counts != want_counts), err, want_counts, moved
+
+
+def first_lanes(base, tid, k):
+    """Copies of the first `k` lanes of a state (and of its tids)."""
+    from mythril_tpu_torch.laser.batch.state import StateBatch
+
+    n = base.pc.shape[0]
+    sub = StateBatch(*(t[:k].clone() if t.dim() and t.shape[0] == n else t.clone()
+                       for t in base))
+    return sub, None if tid is None else tid[:k].clone()
+
+
+def time_substep(base, tid, code, table, phases, with_bound=True):
+    """The substep kernel's time from this state (profiler, SPEC_REPS
+    launches, each from the same state), its time a call between events,
+    and its bound for this state's executed substeps (substep_traffic;
+    None where not `with_bound`): (ms, call ms, bound ms, bound by,
+    bytes, {class: lane-substeps})."""
+    import torch
+
+    from mythril_tpu_torch.laser.batch.state import StateBatch
+    from mythril_tpu_torch.ops import substep
+
+    # each profiled launch restores the state first (copy kernels, not
+    # counted under the substep kernel's name)
+    work = StateBatch(*(t.clone() for t in base))
+    work_tid = None if tid is None else tid.clone()
+    saved = {k: v.clone() for k, v in substep_state_fields(base, tid).items()}
+    live = substep_state_fields(work, work_tid)
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+
+    def kernel_call():
+        for k, v in saved.items():
+            live[k].copy_(v)
+        counts.zero_()
+        substep.substep_run(work, code, table, phases, counts, stack_tid=work_tid)
+
+    dev_ms, call_ms = kernel_ms(kernel_call, "substep_kernel", SPEC_REPS)
+    if not with_bound:
+        return dev_ms, call_ms, None, None, None, None
+    nbytes, n_ops, classes = substep_traffic(base, code, table, phases, tid)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    bound, by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    return dev_ms, call_ms, bound, by, nbytes, classes
+
+
+def check_substep_kernel(card, mode, phases, table, mid, code, symbolic):
+    """One launch of the substep kernel against its plain version on the
+    same 16384 lanes (every updated field and the counts), then its time
+    (time_substep), the plain version's, and its time and bound on the
+    first SPEC_ANALYSIS_LANES lanes of the same state."""
+    import torch
+
+    from mythril_tpu_torch.laser.batch.state import StateBatch
+    from mythril_tpu_torch.ops import substep
+
+    base = mid.base
+    tid = mid.stack_tid if symbolic else None
+    mismatches, err, (executed, heads), moved = substep_against_plain(
+        base, tid, code, table, phases)
     work = StateBatch(*(t.clone() for t in base))
     work_tid = tid.clone() if symbolic else None
     saved = {k: v.clone() for k, v in substep_state_fields(base, tid).items()}
     live = substep_state_fields(work, work_tid)
     counts = torch.zeros(2, dtype=torch.int64, device="cuda")
 
-    def restore():
+    def plain_call():
         for k, v in saved.items():
             live[k].copy_(v)
         counts.zero_()
-
-    def kernel_call():
-        restore()
-        substep.substep_run(work, code, table, phases, counts, stack_tid=work_tid)
-
-    def plain_call():
-        restore()
         substep.substep_plain(work, code, table, phases, counts, stack_tid=work_tid)
 
-    dev_ms, call_ms = kernel_ms(kernel_call, "substep_kernel", SPEC_REPS)
     plain_ms = time_cuda(plain_call, 2)
-    n = base.pc.shape[0]
-    moved = int((runs["kernel"][0]["pc"] != base.pc).sum())
-    nbytes, n_ops, classes = substep_traffic(base, code, table, phases, tid)
+    dev_ms, call_ms, bound, by, nbytes, classes = time_substep(base, tid, code, table, phases)
     if sum(classes.values()) != executed:
         raise SystemExit(f"substep_traffic counted {sum(classes.values())} lane-substeps, "
                          f"the plain version {executed}")
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / INT32_OPS_PER_S * 1e3
-    bound, by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    k = SPEC_ANALYSIS_LANES
+    ms_k, _, bound_k, by_k, bytes_k, classes_k = time_substep(
+        *first_lanes(base, tid, k), code, table, phases)
+    n = base.pc.shape[0]
     log(f"[specialize] {mode} substeps x{substep.plan(phases)[0]} "
         f"{'symbolic' if symbolic else 'concrete'}, {n} lanes: {mismatches} mismatches "
         f"against the plain version (max abs err {err}); {executed} lane-substeps executed "
         f"{classes}, {heads} block heads, {moved} lanes moved; kernel {ms_text(dev_ms)} "
         f"({call_ms:.4f} ms a call between events, state restore included), plain "
-        f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by} ({nbytes:,} B) on {card}")
+        f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by} ({nbytes:,} B); its first {k} "
+        f"lanes ({sum(classes_k.values())} lane-substeps): kernel {ms_text(ms_k)}, bound "
+        f"{bound_k:.5f} ms by {by_k} ({bytes_k:,} B) on {card}")
     return dict(mismatches=mismatches, max_abs_err=err, kernel_ms=dev_ms, call_ms=call_ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by, bytes=nbytes,
-                executed=executed, classes=classes,
-                heads=heads, moved=moved)
+                executed=executed, classes=classes, heads=heads, moved=moved,
+                kernel_ms_416=ms_k, bound_ms_416=bound_k, bound_by_416=by_k,
+                executed_416=sum(classes_k.values()))
+
+
+def check_substep_hazards(card):
+    """The substep kernel against its plain version on every lane of
+    tests/torch_substep_cases.py (a lane a hazard) and on its seeded sweep
+    over LANES lanes (each a program that starts on an ALU op, a SWAPn, a
+    DUPn or a PUSHn, with random and edge operands), in both modes,
+    concrete and symbolic, generic and pruned: every updated field and
+    the counts. Returns {mode: [row, ...]}."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_substep_cases as cases
+
+    from mythril_tpu_torch import interop
+    from mythril_tpu_torch.laser.batch import blockjit as bj
+    from mythril_tpu_torch.laser.batch import specialize as sp
+    from mythril_tpu_torch.laser.batch.step import PhaseSet
+
+    t0 = time.perf_counter()
+    sweep = cases.sweep_state(LANES, SWEEP_SEED)
+    log(f"[specialize] the sweep's {LANES} lanes built in {time.perf_counter() - t0:.1f} s")
+    modes = {"fuse": PhaseSet(fuse_depth=sp.FUSE_DEPTH),
+             "block": PhaseSet(block_depth=bj.BLOCK_DEPTH)}
+    rows = {mode: [] for mode in modes}
+    for label, (_names, fields, ops, length, table, tids) in (
+            ("hazard lanes", cases.substep_state()), ("ALU sweep", sweep)):
+        jumpdest = np.zeros((ops.shape[0], ops.shape[1] - 33), bool)
+        code = interop.code_table_from_numpy((ops, jumpdest, length), device="cuda")
+        tbl = torch.from_numpy(table).to("cuda")
+        base = interop.batch_from_numpy(fields, device="cuda")
+        tid0 = torch.from_numpy(tids).to("cuda")
+        for mode, generic in modes.items():
+            for pruned in (False, True):
+                phases = generic._replace(arith=False, shifts=False) if pruned else generic
+                for symbolic in (False, True):
+                    mismatches, err, (executed, heads), moved = substep_against_plain(
+                        base, tid0 if symbolic else None, code, tbl, phases)
+                    state = (f"{label}, {'pruned' if pruned else 'generic'}, "
+                             f"{'symbolic' if symbolic else 'concrete'}")
+                    log(f"[specialize] {mode} substeps, {state}, {base.pc.shape[0]} lanes: "
+                        f"{mismatches} mismatches against the plain version (max abs err "
+                        f"{err}); {executed} lane-substeps executed, {heads} block heads, "
+                        f"{moved} lanes moved")
+                    rows[mode].append(dict(state=state, mismatches=mismatches,
+                                           max_abs_err=err, executed=executed, heads=heads,
+                                           moved=moved))
+    return rows
 
 
 def spec_wave(label, card, fresh, phases=None, table=None):
@@ -1565,7 +1677,8 @@ def shadow_canonical(symb):
 def phase_specialize(card):
     """Kernel specialization and blockjit on the card: the substep kernel
     in each mode (fuse, block; concrete, symbolic) against its plain
-    version on the vendored wave's 16384 lanes after a few full steps,
+    version on the hazard lanes and the sweep (check_substep_hazards) and
+    on the vendored wave's 16384 lanes after a few full steps,
     then the vendored wave on the generic loop, the fuse-only bucket and
     the block bucket, whose final states must equal the generic one's
     where both run to completion."""
@@ -1580,6 +1693,7 @@ def phase_specialize(card):
         log(f"[specialize] vendored {mode} bucket: pruned {list(phases.pruned)}, fuse_depth "
             f"{phases.fuse_depth}, block_depth {phases.block_depth}")
     checks = {mode: [] for mode in buckets}
+    hazards = check_substep_hazards(card)
     seeded, code = wave.make_wave(WAVE_STRIPES, WAVE_LANES_PER_STRIPE)
 
     def fresh():
@@ -1597,12 +1711,15 @@ def phase_specialize(card):
                 checks[mode].append(row)
     del symb
     t_checks = time.perf_counter()
-    bad = sum(r["mismatches"] for rows in checks.values() for r in rows)
+    bad = sum(r["mismatches"] for group in (checks, hazards) for rows in group.values()
+              for r in rows)
     if bad:
         raise SystemExit(f"the substep kernel disagrees with its plain version: {bad} "
                          f"mismatches")
     if not all(any(r["executed"] for r in rows) for rows in checks.values()):
         raise SystemExit("a substep check executed no lane")
+    if not all(r["executed"] for rows in hazards.values() for r in rows):
+        raise SystemExit("a hazard or sweep check of the substep kernel executed no lane")
 
     t_waves = time.perf_counter()
     generic = spec_wave("generic", card, fresh)
@@ -1634,12 +1751,17 @@ def phase_specialize(card):
     kern = {}
     for mode, name in (("fuse", "fused_substep"), ("block", "block_substep")):
         main = checks[mode][-1]
-        kern[name] = dict(mismatches=sum(r["mismatches"] for r in checks[mode]),
-                          max_abs_err=max(r["max_abs_err"] for r in checks[mode]),
+        rows = checks[mode] + hazards[mode]
+        kern[name] = dict(mismatches=sum(r["mismatches"] for r in rows),
+                          max_abs_err=max(r["max_abs_err"] for r in rows),
                           kernel_ms=main["kernel_ms"], plain_ms=main["plain_ms"],
                           bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                           library_ms=None, shape=f"16384 lanes, {main['state']}",
-                          checks=[{k: v for k, v in r.items()} for r in checks[mode]])
+                          ms_416_lanes=main["kernel_ms_416"],
+                          bound_ms_416_lanes=main["bound_ms_416"],
+                          bound_by_416_lanes=main["bound_by_416"],
+                          checks=[{k: v for k, v in r.items()} for r in checks[mode]],
+                          hazard_checks=hazards[mode])
         if main["kernel_ms"] is None:
             raise SystemExit(f"the profiler saw no {name} kernel at the kernels line's shape")
     waves = {label: {k: v for k, v in run.items() if k != "out"}
@@ -3810,6 +3932,54 @@ def ab_portfolio(card, parent):
     log(json.dumps({"card": card, "ab_portfolio": rows}))
 
 
+def substep_times(label):
+    """The substep kernel of the package on sys.path, in both modes,
+    concrete and symbolic, on the vendored wave after each of
+    SPEC_CHECK_STEPS full steps, at LANES lanes and on the first
+    SPEC_ANALYSIS_LANES: one JSON line of device ms (torch.profiler)."""
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.laser.batch import symbolic as sym
+    from mythril_tpu_torch.native import build
+    from mythril_tpu_torch.ops import substep
+
+    build.build()
+    buckets = vendored_buckets()
+    symb, code = wave.make_wave(WAVE_STRIPES, WAVE_LANES_PER_STRIPE)
+    out = {"label": label, "package": str(Path(substep.__file__).resolve().parents[1])}
+    done = 0
+    for steps in SPEC_CHECK_STEPS:
+        symb, _, _ = sym.sym_run_inplace(symb, code, max_steps=steps - done)
+        done = steps
+        for mode, (phases, table) in buckets.items():
+            for symbolic in (False, True):
+                for lanes in (LANES, SPEC_ANALYSIS_LANES):
+                    base, tid = first_lanes(symb.base, symb.stack_tid if symbolic else None,
+                                            lanes)
+                    kind = "symbolic" if symbolic else "concrete"
+                    out[f"{mode} {kind} {steps} steps {lanes} lanes"] = time_substep(
+                        base, tid, code, table, phases, with_bound=False)[0]
+    sync()
+    print(json.dumps(out), flush=True)
+
+
+def ab_substep(card, parent):
+    """The substep kernel of a parent checkout (`parent`, unpacked beside
+    this one) against this checkout's, each in its own process on this
+    card, in the order parent, change, change, parent."""
+    rows = []
+    for label, root in (("parent", parent), ("change", str(ROOT)), ("change", str(ROOT)),
+                        ("parent", parent)):
+        done = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--substep-times", root, label],
+                              capture_output=True, text=True, timeout=900)
+        if done.returncode != 0:
+            raise SystemExit(f"--substep-times {root} failed:\n{done.stdout}{done.stderr}")
+        rows.append(json.loads(done.stdout.strip().splitlines()[-1]))
+        log(f"[ab] {label} ({root}): " + ", ".join(
+            f"{k} {ms_text(v)}" for k, v in rows[-1].items() if k.endswith("lanes")))
+    log(json.dumps({"card": card, "ab_substep": rows}))
+
+
 def checkout_dir(path: str) -> str:
     """`path` resolved, where it is this checkout or a directory under its
     git-ignored `_archive/` (a parent unpacked with `git archive`); any
@@ -3827,9 +3997,10 @@ def main() -> int:
     if not (ROOT / "mythril_tpu_torch" / "__init__.py").exists():
         print("chip_smoke.py: run from a checkout of the repository", file=sys.stderr)
         return 2
-    # --portfolio-times ROOT LABEL times the package of this checkout or of
-    # one unpacked under _archive/
-    package_root = checkout_dir(args[1]) if args[:1] == ["--portfolio-times"] else str(ROOT)
+    # --portfolio-times and --substep-times ROOT LABEL time the package of
+    # this checkout or of one unpacked under _archive/
+    times = args[:1] in (["--portfolio-times"], ["--substep-times"])
+    package_root = checkout_dir(args[1]) if times else str(ROOT)
     sys.path.insert(0, package_root)
     import torch
 
@@ -3844,9 +4015,15 @@ def main() -> int:
     if args[:1] == ["--portfolio-times"]:
         portfolio_times(args[2])
         return 0
+    if args[:1] == ["--substep-times"]:
+        substep_times(args[2])
+        return 0
     kind, card = phase_device()
     if args[:1] == ["--ab-portfolio"]:
         ab_portfolio(card, checkout_dir(args[1]))
+        return 0
+    if args[:1] == ["--ab-substep"]:
+        ab_substep(card, checkout_dir(args[1]))
         return 0
     phase_build()
     sync()

@@ -37,6 +37,11 @@ BLOCK_LAUNCHES = 0
 
 #: csrc/substep.cu Params: 24 eight-byte fields, in order
 _PARAMS = struct.Struct("24q")
+#: the most substeps one launch takes (csrc/substep.cu kMaxDepth)
+MAX_DEPTH = 8
+#: the most an op may lower sp (csrc/substep.cu kMaxDrop: the kernel's
+#: slot index spans the slots an iteration can reach under it)
+MAX_DROP = 6
 
 _FN = None
 
@@ -47,6 +52,14 @@ def _kernel_fn():
         lib = build.load("substep")
         if lib.substep_params_bytes() != _PARAMS.size:
             raise RuntimeError("csrc/substep.cu Params does not match ops/substep.py")
+        if lib.substep_max_depth() != MAX_DEPTH:
+            raise RuntimeError("csrc/substep.cu kMaxDepth does not match ops/substep.py")
+        from mythril_tpu_torch.laser.batch.step import _META_NP
+
+        net = _META_NP[:, 3]
+        if net.min() < -MAX_DROP or net.max() > 1:
+            raise RuntimeError("an opcode's net_sp lies outside [-MAX_DROP, 1], which the "
+                               "substep kernel's slot index assumes")
         fn = lib.substep_run
         fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -124,6 +137,12 @@ def substep_run(batch, code, table, phases, counts, stack_tid=None,
         operands.append(stack_tid)
     if not build.on_cuda(operands, "substep_run"):
         return substep_plain(batch, code, table, phases, counts, stack_tid, track_coverage)
+    if depth > MAX_DEPTH:
+        raise ValueError(f"substep_run: {depth} substeps a launch, the kernel takes at most "
+                         f"{MAX_DEPTH}")
+    if batch.stack.data_ptr() % 16:
+        raise ValueError("substep_run: the stack must start on a 16-byte boundary (the "
+                         "kernel moves a slot as four 16-byte copies)")
     from mythril_tpu_torch.laser.batch.step import _meta, _unhandled
 
     dev = batch.pc.device

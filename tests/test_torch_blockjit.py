@@ -9,7 +9,9 @@ to it on the card by chip_smoke.py).
   summary, and the JAX suite's goldens hold;
 - one block substep (`torch_substep_cases`: a lane a hazard, the ALU
   family's edge values, taint and the coarse MUL wrap, a pruned phase)
-  equals the JAX `block_substep` / `sym_block_substep`, every field;
+  equals the JAX `block_substep` / `sym_block_substep`, every field; so
+  do BLOCK_DEPTH of them on the seeded sweep (`sweep_state`), one subject
+  op at a time;
 - the block loops: `SpecializedKernel.run` / `sym_run` on a blockjit
   bucket equal the JAX ones at the JAX suite's equivalence setup, every
   field and (steps, substeps, blocks); a 13-stripe vendored wave equals
@@ -56,6 +58,7 @@ from test_torch_specialize import (
     summaries,
 )
 from torch_jax_memory import release_jax_executables  # noqa: F401
+from torch_substep_cases import SWEEP_SUBJECTS, sweep_state
 
 from mythril_tpu.analysis.corpusgen import deadweight_contract
 from mythril_tpu.disassembler.asm import assemble
@@ -243,6 +246,35 @@ def test_block_substep_equals_the_jax_function(symbolic, phases):
         assert taint_or_wrap | {"sar negative by a huge amount2"} <= ran
     if phases is not None:
         assert pruned_ops and not ran & pruned_ops
+
+
+SWEEP_LANES = 32
+#: the JAX block substep, traced once for the sweep's shapes
+_JAX_BLOCK_SUBSTEP = jax.jit(jbj.block_substep, static_argnames=("track_coverage", "phases"))
+
+
+@pytest.mark.parametrize("symbolic", [False, True], ids=["concrete", "symbolic"])
+@pytest.mark.parametrize("subject", SWEEP_SUBJECTS)
+def test_block_substeps_equal_the_jax_function_on_the_sweep(subject, symbolic):
+    """BLOCK_DEPTH block substeps over SWEEP_LANES seeded lanes that start
+    on `subject` (random and edge operands, programs of lowered ops,
+    stacks from empty to the cap): every field, the tids and the counts
+    of each substep equal the JAX function's."""
+    seed = SWEEP_SUBJECTS.index(subject)
+    state = sweep_state(SWEEP_LANES, seed, subjects=(subject,))
+    names, jb, jc, jt, jtid, pb, pc, pt, ptid = substep_inputs(state)
+    jtid, ptid = (jtid, ptid.clone()) if symbolic else (None, None)
+    pc_start = pb.pc.clone()
+    first = None
+    for _ in range(bj.BLOCK_DEPTH):
+        jb, jn, jblocks, jtid = _JAX_BLOCK_SUBSTEP(jb, jc, jt, stack_tid=jtid)
+        pb, pn, pblocks = bj.block_substep(pb, pc, pt, stack_tid=ptid)
+        assert (int(pn), int(pblocks)) == (int(jn), int(jblocks))
+        first = executed(names, pc_start, pb.pc) if first is None else first
+    same_batch(jb, pb, f"sweep {subject}")
+    if symbolic:
+        np.testing.assert_array_equal(np.asarray(jtid), ptid.numpy())
+    assert first, f"no {subject} lane executed its first substep"
 
 
 # ---------------------------------------------------------------------------

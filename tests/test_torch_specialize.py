@@ -224,11 +224,11 @@ def test_decision_goldens():
 # ---------------------------------------------------------------------------
 
 
-def substep_inputs():
-    """The hazard lanes for both packages: (names, JAX batch, JAX code
-    table, JAX table, JAX tids, port batch, port code table, port table,
-    port tids)."""
-    names, fields, ops, length, table, tids = cases.substep_state()
+def substep_inputs(state=None):
+    """The hazard lanes (or another `cases` state) for both packages:
+    (names, JAX batch, JAX code table, JAX table, JAX tids, port batch,
+    port code table, port table, port tids)."""
+    names, fields, ops, length, table, tids = state or cases.substep_state()
     jd = np.zeros((ops.shape[0], ops.shape[1] - 33), bool)
     jbatch = JaxBatch(*(jnp.asarray(x) for x in fields))
     jcode = type(jax_make_code_table([b"\x00"]))(jnp.asarray(ops), jnp.asarray(jd),

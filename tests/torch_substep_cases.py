@@ -10,6 +10,17 @@ ROW_FUSE or ROW_HEAD, an ALU op ROW_BODY or ROW_HEAD, so a fuse-mode
 substep, which takes only ROW_FUSE, skips the others) and the shadow
 stack's tids. The table is narrower than the code rows, so a pc past its
 width reads its last column, as the JAX gather clips.
+
+`sweep_state(n, seed, subjects)` returns the same tuple for `n` seeded
+lanes, each a short program of its own that starts on one subject op (an
+ALU op, a SWAPn, a DUPn or a PUSHn; `SWEEP_SUBJECTS`, cycled over the
+lanes) and goes on with random ops, most of them lowered, under random
+table rows, so every substep of a launch has work: ALU operands drawn from
+random words and edge words (0, 1, 2**255, 2**256 - 1, runs of 0xFFFF
+limbs, shift amounts 0/15/16/255/256/2**200, BYTE 31/32, SIGNEXTEND
+30/31, MUL at 2**128 +- 1), programs that start near the table's and the
+code's ends, stacks from empty to the cap, gas at and past the budget and
+wrapping mod 2**32, halted lanes, and tids that are mostly concrete.
 """
 
 import numpy as np
@@ -134,3 +145,123 @@ def substep_state():
     fields = fields._replace(pc=pc, sp=sp, stack=stack, status=status, gas_min=gas_min,
                              gas_max=gas_min.copy(), gas_budget=budget)
     return [c["name"] for c in CASES], fields, ops, length, table, tids
+
+
+#: the ALU family (the block substeps' arithmetic), by name
+ALU_NAMES = ("ADD", "MUL", "SUB", "SIGNEXTEND", "LT", "GT", "SLT", "SGT", "EQ", "ISZERO",
+             "AND", "OR", "XOR", "NOT", "BYTE", "SHL", "SHR", "SAR")
+SWEEP_SUBJECTS = ALU_NAMES + ("SWAP", "DUP", "PUSH")
+
+
+def _ffff_runs():
+    """Words whose limbs are 0xFFFF from one limb to another: a carry or
+    borrow runs across all of them."""
+    return [(((1 << (16 * k)) - 1) << (16 * lo)) & M256
+            for k in (1, 2, 8, 15, 16) for lo in (0, 1, 16 - k)]
+
+
+EDGE_WORDS = [0, 1, 2, 1 << 255, M256, NEG(1) ^ 1, (1 << 128) - 1, 1 << 128, (1 << 128) + 1,
+              (1 << 255) - 1, 0xFFFF, 0x10000, 0x8000, 0x80] + _ffff_runs()
+SHIFT_AMOUNTS = [0, 1, 15, 16, 17, 255, 256, 257, 1 << 16, 1 << 200]
+#: the first operand's edges, by subject
+FIRST_EDGES = {"SHL": SHIFT_AMOUNTS, "SHR": SHIFT_AMOUNTS, "SAR": SHIFT_AMOUNTS,
+               "BYTE": [0, 1, 15, 16, 30, 31, 32, 33, 1 << 200],
+               "SIGNEXTEND": [0, 1, 15, 16, 29, 30, 31, 32, 1 << 200],
+               "MUL": [(1 << 128) - 1, 1 << 128, (1 << 128) + 1, 0, 1, M256]}
+#: follow-up ops: lowered ones (PUSHn, DUPn, SWAPn, the ALU family, POP,
+#: JUMPDEST) and a few that no table lowers but a wrong row may mark
+_FOLLOW = ([B[name] for name in ALU_NAMES] + [B["POP"], B["JUMPDEST"]] * 3
+           + [0x60 + k for k in range(32)] + [0x80 + k for k in range(16)] * 2
+           + [0x90 + k for k in range(16)] * 2 + [B["SSTORE"], B["MLOAD"], B["ADDRESS"]])
+
+
+def _word_limbs(words):
+    return np.stack([u256.from_int(w) for w in words]).astype(np.uint32)
+
+
+def _random_words(rng, shape):
+    """Random words as [*shape, 16] limbs: their high limbs cut at a
+    random length, a fifth of them edge words."""
+    limbs = rng.integers(0, 1 << 16, (*shape, 16), dtype=np.uint32)
+    keep = rng.integers(0, 17, shape)
+    limbs[np.arange(16) >= keep[..., None]] = 0
+    edges = _word_limbs(EDGE_WORDS)
+    pick = rng.random(shape) < 0.2
+    limbs[pick] = edges[rng.integers(0, len(edges), int(pick.sum()))]
+    return limbs
+
+
+def _pick(rng, values):
+    return values[int(rng.integers(0, len(values)))]
+
+
+def sweep_state(n, seed=0, subjects=SWEEP_SUBJECTS):
+    """`n` seeded lanes, lane i starting on subjects[i % len(subjects)];
+    the tuple `substep_state` returns (see the module docstring)."""
+    rng = np.random.default_rng(seed)
+    fields = make_batch_numpy(n, code_ids=list(range(n)), calldata=[b""] * n,
+                              stack_cap=STACK_CAP, mem_cap=32, storage_cap=4)
+    ops = np.zeros((n, CODE_CAP + 33), np.uint8)
+    length = np.full((n,), CODE_CAP, np.int32)
+    table = rng.choice(np.array([0, 1, 2, 3], np.uint8), (n, TABLE_W),
+                       p=[0.05, 0.5, 0.3, 0.15])
+    stack = _random_words(rng, (n, STACK_CAP))
+    tids = np.where(rng.random((n, STACK_CAP)) < 0.75, 0,
+                    rng.integers(-1, 500, (n, STACK_CAP))).astype(np.int32)
+    pc = np.zeros((n,), np.int32)
+    sp = np.zeros((n,), np.int32)
+    gas_min = np.zeros((n,), np.uint32)
+    budget = np.full((n,), 8_000_000, np.uint32)
+    status = np.where(rng.random(n) < 0.05, 1, 0).astype(np.int32)
+    names = []
+    ends = list(range(TABLE_W - 3, TABLE_W + 2)) + list(range(CODE_CAP - 34, CODE_CAP))
+    for i in range(n):
+        subject = subjects[i % len(subjects)]
+        if subject == "PUSH":
+            k = int(rng.integers(1, 33))
+            first, need, name = 0x5F + k, 0, f"PUSH{k}"
+        elif subject in ("DUP", "SWAP"):
+            k = int(rng.integers(1, 17))
+            first = (0x7F if subject == "DUP" else 0x8F) + k
+            need, name = k + (subject == "SWAP"), f"{subject}{k}"
+        else:
+            first, need, name = B[subject], 1 if subject in ("ISZERO", "NOT") else 2, subject
+        names.append(name)
+        start = _pick(rng, ends) if rng.random() < 0.3 else int(rng.integers(0, CODE_CAP - 8))
+        code = [first] + [int(x) for x in rng.integers(0, 256, 32)] * (0x60 <= first <= 0x7F)
+        code = code[:1 + max(0, first - 0x5F)] if 0x60 <= first <= 0x7F else code
+        while start + len(code) < CODE_CAP:
+            op = _pick(rng, _FOLLOW)
+            code += [op] + [int(x) for x in rng.integers(0, 256, max(0, op - 0x5F))] * (
+                0x60 <= op <= 0x7F)
+        code = code[:CODE_CAP - start]
+        ops[i, start:start + len(code)] = code
+        if rng.random() < 0.1:
+            length[i] = int(rng.integers(start, CODE_CAP + 1))
+        pc[i] = start
+        # the subject's own row: a fusible op mostly ROW_FUSE, so both
+        # modes start on it; an ALU op sometimes ROW_FUSE too, which a
+        # fused substep runs as an op that writes nothing
+        fusible = first >= 0x60
+        table[i, min(start, TABLE_W - 1)] = _pick(
+            rng, [1, 1, 1, 2, 3] if fusible else [1, 2, 2, 3, 3])
+        sp[i] = _pick(rng, [0, STACK_CAP, STACK_CAP - 1, max(need - 1, 0), need, need,
+                            int(rng.integers(need, STACK_CAP + 1)),
+                            int(rng.integers(need, STACK_CAP + 1))])
+        if subject in ALU_NAMES and sp[i] >= need:
+            top = sp[i] - 1
+            edges = FIRST_EDGES.get(subject, EDGE_WORDS)
+            if rng.random() < 0.6:
+                stack[i, top] = u256.from_int(_pick(rng, edges))
+            if need == 2 and rng.random() < 0.6:
+                stack[i, top - 1] = u256.from_int(_pick(rng, EDGE_WORDS + edges))
+            if rng.random() < 0.8:
+                tids[i, max(top - 1, 0):top + 1] = 0
+        roll = rng.random()
+        if roll < 0.1:  # the budget runs out within the launch
+            gas_min[i] = budget[i] - int(rng.integers(0, 12))
+        elif roll < 0.13:  # the gas sum wraps mod 2**32
+            gas_min[i] = (1 << 32) - int(rng.integers(1, 8))
+    fields = fields._replace(pc=pc, sp=sp, stack=stack, status=status, gas_min=gas_min,
+                             gas_max=gas_min.copy(), gas_budget=budget)
+    return names, fields, ops, length, table, tids
