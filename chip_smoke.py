@@ -15,6 +15,9 @@
                                             # (phases 11, 12, 9)
     python3 chip_smoke.py --specialize      # device, build, then only the
                                             # specialization phase (5b)
+    python3 chip_smoke.py --serve           # device, build, the kernel
+                                            # phases, then only the
+                                            # analysis service (phase 9b)
     python3 chip_smoke.py --solver          # device, build, the pinned wave
                                             # (phase 6), then only the host
                                             # solver stack (phase 6b)
@@ -31,12 +34,16 @@
     python3 chip_smoke.py --ab-substep DIR  # the same for the substep kernel,
                                             # at the specialize phase's states
                                             # (16384 and 416 lanes)
+    python3 chip_smoke.py --ab-main DIR     # the same for the main path (phase
+                                            # 4's run, 3 warm runs a visit), in
+                                            # the order DIR, this, this, DIR,
+                                            # twice
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 non-zero (nothing is caught). They run one at a time, each alone on
-the card, in the order 1-12 (5b after 5); 9 runs (b), (a) (a process of its own),
-the command-line checks (subprocesses, one at a time) and the wrapper's
-own prepass.
+the card, in the order 1-12 (5b after 5, 9b after 9); 9 runs (b), (a) (a
+process of its own), the command-line checks (subprocesses, one at a time)
+and the wrapper's own prepass.
 
 1. device: require CUDA; print the card's name and power limit, the
    host's CPU model and the host's dispatch time per trivial CUDA launch
@@ -218,6 +225,35 @@ own prepass.
    device prepass on the card must give SWC-106 at pc 15 and launch
    slot_write. Phase 8 runs with the ladder off (a zero cap), as it did
    before the ladder was ported;
+9b. analysis service (service/: `serve`'s engine, HTTP server and client)
+   at `serve`'s own geometry (4 stripes x 8 lanes, 256 steps and 2 waves
+   a job, 68 B calldata, code_cap 2048, 2 transactions, the host walk on
+   at 8 s with one worker, specialization, blockjit and the static
+   answer on, arena warmup on): serve_jobs()'s ten submissions, in two
+   groups (the milestone pair, KILLABLE, exceptions.sol.o device-only,
+   WRITER and BRANCHER; then KILLABLE again, HASHKILL, and with a
+   deadline of 0 HASHKILL device-only and WRITER), queued before the
+   engine starts. First at `serve`'s defaults (SERVE_DEFAULTS:
+   lock-step, buckets warmed in the background from a cold kernel
+   cache) with fixed job ids: the seconds until /healthz?ready=1 leaves
+   arena-warming; every job's state, waves, device block but its
+   lane-steps, issue fingerprints, degradations and static answer held
+   to the JAX engine's lock-step pin with the walks on
+   (tests/test_torch_service_pinned.json, "full_lockstep_walks"); a
+   warmup and both kinds of wave must run; keccak_sponge, slot_write and
+   block_substep must launch (the kernels line's `launches_serve`).
+   Then pipelined (SERVE_CONFIG), the groups submitted concurrently
+   through ServiceClient, each report equal to the pipelined pin
+   ("full"). Then the same submissions device-only straight into
+   engines with fixed job ids, pipelined and lock-step in turns (P, L,
+   L, P), each held to its schedule's pin, `serve` and `submit` through
+   the command line's entry with its defaults (the card; in-process, on
+   a thread), and one profiled wave of exceptions.sol.o: its idle
+   share. The `serve` line (before the kernels line) carries the
+   defaults' jobs, waves, wall per wave, max jobs resident, seconds to
+   ready and to the first report, job latency p50 and max, the same
+   numbers of the pipelined run under `pipelined`, the schedules'
+   walls and the idle share;
 10. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
    own programs (the search also on the cube fan's first CUBE_CHECK_Q;
    all of them are timed), on queries the
@@ -244,10 +280,11 @@ own prepass.
    defaults (the hybrid replay: a lane the device halts UNSUPPORTED
    continues on the host engine; and the straggler re-run), every case
    passing, as the JAX package's hybrid manifest pins (536), the host
-   takeovers counted;
-13. report: the `kernels` JSON line (each kernel's launches on every
-   path: main, symbolic wave, flip frontier, explore, analyze, the
-   vendored walks of analyze (b), the race gate's walk, solver; for
+   takeovers counted (the stragglers run on from the main pass's state);
+13. report: the `serve` line, then the `kernels` JSON line (each kernel's
+   launches on every path: main, symbolic wave, flip frontier, explore,
+   analyze, the vendored walks of analyze (b), the race gate's walk,
+   solver, serve; for
    fused_substep and block_substep also `launches_spec_wave`, the 5b
    wave of their mode), then the result line.
 
@@ -3528,6 +3565,415 @@ def phase_analyze(card):
     return analyze
 
 
+# ---------------------------------------------------------------------------
+# the analysis service (phase 9b): `serve` at its own geometry
+# ---------------------------------------------------------------------------
+SERVE_PIN = ROOT / "tests" / "test_torch_service_pinned.json"
+WRITER = "6001600055600060015500"  # PUSH1 1 PUSH1 0 SSTORE PUSH1 0 PUSH1 1 SSTORE STOP
+KILLABLE = "33ff"  # CALLER SELFDESTRUCT
+BRANCHER = "600035600757005b600160005500"  # CALLDATALOAD(0) branches to an SSTORE
+# CALLDATALOAD(0) -> memory, SSTORE(0, SHA3 of it), CALLER SELFDESTRUCT: a SHA3
+# on every lane (keccak_sponge) before an unprotected selfdestruct
+HASHKILL = "6000356000526020600020600055" "33ff"
+#: `serve`'s geometry (the JAX package's `myth serve`: 4 stripes x 8 lanes,
+#: 256 steps and 2 waves a job, 68 B calldata, code_cap 2048, 2 transactions,
+#: the host walk at 8 s with one worker, specialization, blockjit and the
+#: static answer on), pipelined (the JAX default; the port's `serve` runs
+#: lock-step) with a bucket warmed on its dispatching wave ("sync"): the
+#: pins' configuration, at which which waves run specialized does not hang
+#: on a warmup thread's timing. A pipelined job's second wave repeats its
+#: seeds, so its report does not hang on the mutation RNG, which the job id
+#: seeds and the HTTP path draws at random; lock-step runs fix the ids
+SERVE_CONFIG = dict(stripes=4, lanes_per_stripe=8, steps_per_wave=256, max_waves=2,
+                    calldata_len=68, code_cap=2048, transaction_count=2, host_walk=True,
+                    execution_timeout=8, host_workers=1, specialize=True, blockjit=True,
+                    static_answer=True, pipeline=True, specialize_warmup="sync")
+#: `serve`'s own defaults: lock-step, a bucket warmed in the background
+SERVE_DEFAULTS = dict(SERVE_CONFIG, pipeline=False, specialize_warmup="background")
+#: the tests' geometry (the JAX service tests' arena: 2 stripes x 4 lanes, 64 steps)
+SERVE_SMALL = dict(SERVE_CONFIG, stripes=2, lanes_per_stripe=4, steps_per_wave=64)
+SERVE_READY_S = 600.0  # the most the phase waits for readiness or a report
+
+
+def serve_groups():
+    """The phase's submissions, by admission group: ((label, code hex,
+    submit kwargs), ...) twice. Group 1 fills the arena's 4 stripes (the
+    milestone pair, KILLABLE, and exceptions.sol.o, the vendored contract
+    whose block depth is 6: its device phase alone, as its walk outlasts
+    the walk's 8 s) beside two submissions the static answer settles at
+    admission (WRITER, BRANCHER); group 2 is queued behind it: KILLABLE
+    again (a code-cache hit), HASHKILL (SHA3 on the card) and, with a
+    deadline of 0, HASHKILL device-only (one wave, deadline-expired) and
+    WRITER. Group 1 fills the arena and group 2 waits behind it, so
+    which jobs share a wave, and so each job's lane-steps, does not hang
+    on the order of the submissions within a group."""
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+
+    exceptions = (wave.CONTRACTS / "exceptions.sol.o").read_text().strip()
+    return (
+        (("gated_kill", MILESTONE[0][1], {}), ("always_assert", MILESTONE[1][1], {}),
+         ("killable", KILLABLE, {}), ("exceptions", exceptions, {"host_walk": False}),
+         ("writer", WRITER, {}), ("brancher", BRANCHER, {})),
+        (("killable_again", KILLABLE, {}), ("hashkill", HASHKILL, {}),
+         ("hashkill_deadline", HASHKILL, {"deadline_s": 0.0, "host_walk": False}),
+         ("writer_deadline", WRITER, {"deadline_s": 0.0})),
+    )
+
+
+def serve_jobs(device_only=False):
+    """serve_groups() in submission order; `device_only` turns every
+    job's host walk off."""
+    return [(label, code, dict(kw, host_walk=False) if device_only else kw)
+            for group in serve_groups() for label, code, kw in group]
+
+
+def serve_fields(job) -> dict:
+    """What a job's report is held to the pin by (`job` is the HTTP job
+    dict): its state and waves, the report's device block, its issues'
+    fingerprints, the walk's error, the degradations and the static
+    answer. Left out: the job and journey ids (random over HTTP) and the
+    timings (`timings`, `static.wall_ms`)."""
+    report = job.get("report") or {}
+    return {
+        "state": job["state"],
+        "waves": job["waves"],
+        "code_hash": report.get("code_hash"),
+        "device": report.get("device"),
+        "issues": issue_fingerprints(report) if "issues" in report else None,
+        "host_error": (report.get("host") or {}).get("error"),
+        "degraded": report.get("degraded", []),
+        "static_answered": report.get("static_answered", False),
+    }
+
+
+def serve_differences(got: dict, pin: dict) -> list:
+    """The labels whose fields differ from the pin, with both sides."""
+    return [(label, got.get(label), want) for label, want in sorted(pin.items())
+            if got.get(label) != want]
+
+
+def serve_pin(part):
+    pin = json.loads(SERVE_PIN.read_text())[part]
+    want = dict(SERVE_CONFIG, pipeline=pin["config"]["pipeline"])
+    if pin["config"] != want:
+        raise SystemExit(f"serve: the pin's {part} was taken at {pin['config']}, not {want}")
+    return pin
+
+
+def serve_http(card, config, submit, label):
+    """An AnalysisServer at `config` with its arena warmup: `submit(srv)`
+    queues the submissions and returns {label: job id} before the engine
+    starts, then the engine starts (the launch counts set to 0 just
+    before) and every report is read over HTTP. Returns ({label: job
+    dict}, the numbers of the serve line, the launches, /stats)."""
+    from mythril_tpu_torch.laser.smt.solver import device_race
+    from mythril_tpu_torch.observe.spans import flight_recorder, overlap_fraction
+    from mythril_tpu_torch.service.client import ServiceClient, ServiceError
+    from mythril_tpu_torch.service.engine import ServiceConfig
+    from mythril_tpu_torch.service.server import AnalysisServer
+
+    srv = AnalysisServer(ServiceConfig(arena_warmup=True, **config),
+                         start_engine=False).start()
+    try:
+        client = ServiceClient(srv.url)
+        probe = ServiceClient(srv.url, honor_retry_after=False)
+        ids = submit(srv, client)
+        if len(ids) != len(serve_jobs()):
+            raise SystemExit(f"serve ({label}): submissions lost: {sorted(ids)}")
+        sync()
+        reset_launches()
+        start_mono = time.monotonic()
+        p0 = time.perf_counter()
+        srv.engine.start()
+        ready_s = None
+        while ready_s is None:
+            try:
+                probe.healthz(ready=True)
+                ready_s = time.perf_counter() - p0
+            except ServiceError as why:
+                if why.status != 503 or time.perf_counter() - p0 > SERVE_READY_S:
+                    raise SystemExit(f"serve ({label}): readiness {why.status}: {why}")
+                time.sleep(0.02)
+        jobs = {name: client.report(job_id, wait_s=SERVE_READY_S)
+                for name, job_id in ids.items()}
+        if not device_race.wait_idle(timeout=120):
+            raise SystemExit(f"serve ({label}): a walk's race is still running")
+        sync()
+        wall = time.perf_counter() - p0
+        launches = read_launches()
+        stats = client.stats()
+        finished = {name: srv.engine.queue.get(job_id).finished_t
+                    for name, job_id in ids.items()}
+        waves = [w for w in flight_recorder().tail(8192)
+                 if w.name == "wave.device" and w.track == "service" and w.t0 >= p0]
+    finally:
+        srv.close()
+    arena = [name for name, job in jobs.items()
+             if not (job.get("report") or {}).get("static_answered")]
+    latencies = sorted(job["latency_s"] for job in jobs.values())
+    wave_s = [w.t1 - w.t0 for w in waves]
+    out = {
+        "jobs": len(jobs),
+        "waves": stats["waves"]["count"],
+        "spec_waves": stats["kernel"]["spec_waves"],
+        "generic_waves": stats["kernel"]["generic_waves"],
+        "warmups_launched": stats["kernel"]["warmups_launched"],
+        "wave_wall_s_mean": round(statistics.mean(wave_s), 6) if wave_s else None,
+        "wave_wall_s_median": round(statistics.median(wave_s), 6) if wave_s else None,
+        "max_jobs_resident": stats["arena"]["max_jobs_resident"],
+        "ready_s": round(ready_s, 6),
+        "first_report_s": round(min(finished[name] for name in arena) - start_mono, 6),
+        "latency_p50_s": statistics.median(latencies),
+        "latency_max_s": latencies[-1],
+        "wall_s": round(wall, 6),
+        # the share of the waves' dispatch-to-ready time with two of them
+        # in flight (the pipelined slots; 0 lock-step)
+        "waves_in_flight_together": overlap_fraction(waves),
+        "code_cache_hits": stats["warm"]["code_cache"]["hits"],
+        "static_answered": stats["static"]["static_answered"],
+        "walks": stats["host_pool"]["completed"],
+        "blockjit_blocks": stats["kernel"]["blockjit_blocks"],
+    }
+    log(f"[serve] {label}: {len(jobs)} jobs through the HTTP server at serve's geometry "
+        f"(4 x 8 lanes, 256 steps, 2 waves a job, the walks on): {out}; "
+        f"launches {launches} on {card}")
+    return jobs, out, launches, stats
+
+
+def serve_check(label, jobs, pin, without=()):
+    """Hold every job of `jobs` to `pin` (serve_fields, the device block
+    less the keys in `without`); fail on a job that is not done or
+    differs."""
+    def fields(f):
+        device = f["device"] and {k: v for k, v in f["device"].items() if k not in without}
+        return dict(f, device=device)
+
+    got = {name: fields(serve_fields(job)) for name, job in jobs.items()}
+    for name in sorted(got):
+        log(f"  {name}: {got[name]['state']}, waves {got[name]['waves']}, device "
+            f"{got[name]['device']}, issues {[i[:2] for i in got[name]['issues'] or []]}, "
+            f"degraded {got[name]['degraded']}, static {got[name]['static_answered']}")
+    diffs = serve_differences(got, {name: fields(f) for name, f in pin.items()})
+    failed = sorted(name for name, job in jobs.items() if job["state"] != "done")
+    if failed or diffs:
+        raise SystemExit(f"serve ({label}): failed jobs {failed}; differences from the pin "
+                         f"{diffs}")
+
+
+def serve_default(card):
+    """The pinned submissions through the HTTP server at `serve`'s own
+    defaults (SERVE_DEFAULTS: lock-step, a bucket warmed in the
+    background from a cold kernel cache, the walks on): both groups
+    queued in order with fixed job ids (they seed the mutation RNG, as
+    the pin's did) before the engine starts, so group 1 fills the arena.
+    Every report is held to the JAX engine's lock-step pin with the walks
+    on but in its lane-steps (a generic wave counts steps, a specialized
+    one its loop's iterations, and which waves run specialized hangs on
+    the warmup thread); a warmup must have run and both kinds of wave;
+    keccak_sponge, slot_write and block_substep must launch. Returns the
+    serve line's numbers and the launches (`launches_serve`)."""
+    from mythril_tpu_torch.laser.batch import specialize
+    from mythril_tpu_torch.service.jobs import Job
+
+    def submit(srv, client):
+        ids = {}
+        for i, (name, code, kw) in enumerate(serve_jobs()):
+            job = Job(code, **kw)
+            job.id = job.journey_id = f"{i + 1:012x}"
+            ids[name] = srv.engine.submit(job).id
+        return ids
+
+    # the phases before this one warmed buckets in the process-wide kernel
+    # cache: start from a cold one, as a fresh `serve` does
+    specialize.clear_kernel_cache()
+    jobs, out, launches, _ = serve_http(card, SERVE_DEFAULTS, submit, "defaults")
+    serve_check("defaults", jobs, serve_pin("full_lockstep_walks")["jobs"],
+                without=("lane_steps",))
+    missing = [name for name in ("keccak_sponge", "slot_write", "block_substep")
+               if not launches[name]]
+    if missing or not (out["warmups_launched"] and out["generic_waves"] and out["spec_waves"]):
+        raise SystemExit(f"serve (defaults): the service never launched {missing}, or "
+                         f"ran no warmup or not both kinds of wave: {out}")
+    return out, launches
+
+
+def serve_pipelined(card):
+    """The pinned submissions through the HTTP server, pipelined with
+    each bucket warmed on its dispatching wave (SERVE_CONFIG), group 1
+    then group 2 submitted concurrently by ServiceClient threads; every
+    report equal to the JAX engine's pipelined pin (a pipelined job's
+    second wave repeats its seeds, so its report does not hang on the
+    random ids of the HTTP path). Returns the numbers, labelled
+    pipelined in the serve line."""
+    import threading
+
+    def submit(srv, client):
+        ids = {}
+        for group in serve_groups():
+            threads = [threading.Thread(target=lambda n=name, c=code, k=kw: ids.__setitem__(
+                n, client.submit(c, **k))) for name, code, kw in group]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        return ids
+
+    jobs, out, _, _ = serve_http(card, SERVE_CONFIG, submit, "pipelined")
+    serve_check("pipelined", jobs, serve_pin("full")["jobs"])
+    return out
+
+
+def serve_schedule_run(pipeline):
+    """serve_jobs(device_only=True) straight into an engine on the card
+    (fixed job ids, the mutation RNG's seeds, as the pin's), pipelined or
+    lock-step: (wall from start to the last report, {label: fields})."""
+    from mythril_tpu_torch.service.engine import AnalysisEngine, ServiceConfig
+    from mythril_tpu_torch.service.jobs import Job
+
+    engine = AnalysisEngine(ServiceConfig(**dict(SERVE_CONFIG, pipeline=pipeline)))
+    submitted = []
+    for i, (label, code, kw) in enumerate(serve_jobs(device_only=True)):
+        job = Job(code, **kw)
+        job.id = job.journey_id = f"{i + 1:012x}"
+        submitted.append((label, engine.submit(job)))
+    sync()
+    try:
+        t0 = time.perf_counter()
+        engine.start()
+        for _, job in submitted:
+            if not engine.queue.wait_terminal(job.id, SERVE_READY_S).terminal:
+                raise SystemExit(f"serve: job {job.id} never settled")
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.drain()
+    return wall, {label: serve_fields(job.as_dict()) for label, job in submitted}
+
+
+def serve_schedules(card):
+    """The pipelined and the lock-step schedule on the same device-only
+    submissions, in turns (pipelined, lock-step, lock-step, pipelined),
+    each run held to the JAX engine's pin of its schedule: the lock-step
+    pin, and the pipelined pin's device fields (that pin's jobs walk;
+    a walk does not feed back into the waves)."""
+    pins = {True: serve_pin("full")["jobs"], False: serve_pin("full_lockstep")["jobs"]}
+    walls = {True: [], False: []}
+    for pipeline in (True, False, False, True):
+        wall, got = serve_schedule_run(pipeline)
+        want = pins[pipeline]
+        if pipeline:
+            # the pinned pipelined run walks: hold the device half
+            got = {k: {f: v[f] for f in ("state", "waves", "device")} for k, v in got.items()}
+            want = {k: {f: v[f] for f in ("state", "waves", "device")} for k, v in want.items()}
+        diffs = serve_differences(got, want)
+        if diffs:
+            raise SystemExit(f"serve: {'pipelined' if pipeline else 'lock-step'} run "
+                             f"differs from its pin: {diffs}")
+        walls[pipeline].append(round(wall, 6))
+    log(f"[serve] schedules, device-only, in turns (P, L, L, P): pipelined "
+        f"{walls[True]} s, lock-step {walls[False]} s from start to the last report, "
+        f"each equal to its schedule's pin on {card}")
+    return {"pipelined_s": walls[True], "lockstep_s": walls[False]}
+
+
+def serve_cli(card):
+    """`python -m mythril_tpu_torch serve`'s own entry with its defaults
+    (the card, lock-step, arena warmup), in-process on a thread so that
+    it finds the kernels loaded: `submit` through the command line's
+    entry, KILLABLE device-only, must print a done job with its
+    selfdestruct trigger; POST /v1/drain then ends `serve`, which must
+    return 0."""
+    import contextlib
+    import io
+    import socket
+    import threading
+
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.service.client import ServiceClient, ServiceError
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    rc = {}
+    server = threading.Thread(target=lambda: rc.setdefault(
+        "serve", cli.main(["serve", "--port", str(port), "--no-host-walk"])), daemon=True)
+    t0 = time.perf_counter()
+    server.start()
+    client = ServiceClient(url, honor_retry_after=False)
+    while True:
+        try:
+            client.healthz(ready=True)
+            break
+        except (ServiceError, OSError):
+            if time.perf_counter() - t0 > SERVE_READY_S or not server.is_alive():
+                raise SystemExit(f"serve (command line): never ready ({rc})")
+            time.sleep(0.02)
+    ready_s = time.perf_counter() - t0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc["submit"] = cli.main(["submit", "-c", KILLABLE, "--url", url, "--no-host-walk"])
+    job = json.loads(out.getvalue())
+    client.drain()
+    server.join(timeout=SERVE_READY_S)
+    log(f"[serve] the command line: `serve --port {port} --no-host-walk` ready in "
+        f"{ready_s:.3f} s on {card}; `submit -c "
+        f"{KILLABLE}`: {job['state']}, waves {job['waves']}, device "
+        f"{job['report']['device']}; exits {rc}")
+    if server.is_alive() or rc != {"serve": 0, "submit": 0} or job["state"] != "done" \
+            or job["report"]["device"]["triggers"] != {"selfdestruct": 1}:
+        raise SystemExit(f"serve (command line): {rc}, {job}")
+
+
+def serve_profile(card):
+    """One wave profiled: a lock-step engine's device-only run of
+    exceptions.sol.o alone (one job, one wave: max_waves 1), under
+    torch.profiler; the idle share is 1 - the CUDA kernels' busy time over
+    the wave's own span (dispatch to readback-ready)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from mythril_tpu_torch.observe.spans import flight_recorder
+    from mythril_tpu_torch.service.engine import AnalysisEngine, ServiceConfig
+    from mythril_tpu_torch.service.jobs import Job
+
+    code = dict((label, code) for label, code, _ in serve_jobs())["exceptions"]
+    engine = AnalysisEngine(ServiceConfig(**dict(SERVE_CONFIG, pipeline=False,
+                                                 host_walk=False, max_waves=1)))
+    job = engine.submit(Job(code))
+    sync()
+    t0 = time.perf_counter()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.start()
+        engine.queue.wait_terminal(job.id, SERVE_READY_S)
+        sync()
+    engine.drain()
+    (wave,) = [s for s in flight_recorder().tail(8192)
+               if s.name == "wave.device" and s.track == "service" and s.t0 >= t0]
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    if not kernels:
+        log(f"[serve] the profiler recorded no device activity: idle share not measured")
+        return None
+    busy_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    wave_s = wave.t1 - wave.t0
+    idle = 1 - busy_s / wave_s
+    log(f"[serve] one profiled wave (exceptions.sol.o, 8 lanes of 32, block bucket): "
+        f"{len(kernels)} CUDA kernels, device busy {busy_s * 1e3:.3f} ms of the wave's "
+        f"{wave_s * 1e3:.3f} ms (idle share {idle:.4f}), steps {job.report['device']['lane_steps'] // 8} "
+        f"on {card}")
+    return round(idle, 6)
+
+
+def phase_serve(card):
+    """Phase 9b: the analysis service on the card (see the docstring's
+    list)."""
+    out, launches = serve_default(card)
+    out["pipelined"] = serve_pipelined(card)
+    out["schedules"] = serve_schedules(card)
+    serve_cli(card)
+    out["idle_share_one_wave"] = serve_profile(card)
+    return {"serve": out, "launches": launches}
+
+
 def phase_bignum(card):
     """The bit-serial u256 loops at full width (candidates for kernels)."""
     import numpy as np
@@ -3580,7 +4026,7 @@ def phase_vmtests():
     passes = sum(v == "pass" for v in verdicts.values())
     device_skips = sorted(k for k, v in pinned["verdicts"].items() if v != "pass")
     not_passed = sorted(k for k, v in verdicts.items() if v != "pass")
-    log(f"[vmtests] {len(cases)} cases, hybrid with the straggler re-run, in {wall:.1f} s: "
+    log(f"[vmtests] {len(cases)} cases, hybrid, the stragglers run on, in {wall:.1f} s: "
         f"{passes} pass (JAX manifest {manifest['total_pass']}), {takeovers} host takeovers; "
         f"the {len(device_skips)} cases the device alone skips: "
         f"{[(k, verdicts.get(k)) for k in device_skips]}")
@@ -3980,6 +4426,57 @@ def ab_substep(card, parent):
     log(json.dumps({"card": card, "ab_substep": rows}))
 
 
+def main_times(label):
+    """The main path (phase_main_path's program, LANES lanes, STEPS steps)
+    of the package on sys.path: cold, then AB_MAIN_REPS warm runs, with
+    the host's dispatch time per trivial launch: one JSON line."""
+    import numpy as np
+
+    from mythril_tpu_torch.laser.batch import make_batch, make_code_table, run
+    from mythril_tpu_torch.native import build
+
+    build.build()
+    _, code = program()
+    rng = np.random.default_rng(1)
+    calldata = [rng.integers(0, 256, CALLDATA_BYTES, dtype=np.uint8).tobytes()
+                for _ in range(LANES)]
+    table = make_code_table([code])
+    batch = make_batch(LANES, calldata=calldata)
+    t0 = time.perf_counter()
+    run(batch, table, max_steps=LOOP_STEPS)
+    sync()
+    cold_ms = (time.perf_counter() - t0) / LOOP_STEPS * 1e3
+    warm = []
+    for _ in range(AB_MAIN_REPS):
+        t0 = time.perf_counter()
+        _, steps = run(batch, table, max_steps=STEPS)
+        sync()
+        warm.append((time.perf_counter() - t0) / steps * 1e3)
+    out = {"label": label, "package": str(Path(build.__file__).resolve().parents[1]),
+           "dispatch_us": dispatch_us(), "cold_ms_per_step": cold_ms,
+           "warm_ms_per_step": warm}
+    print(json.dumps(out), flush=True)
+
+
+def ab_main(card, parent):
+    """The main path of a parent checkout (`parent`, unpacked beside this
+    one) against this checkout's, each in its own process on this card,
+    in the order parent, change, change, parent, twice."""
+    rows = []
+    for label, root in (("parent", parent), ("change", str(ROOT)), ("change", str(ROOT)),
+                        ("parent", parent)) * 2:
+        done = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--main-times", root, label],
+                              capture_output=True, text=True, timeout=900)
+        if done.returncode != 0:
+            raise SystemExit(f"--main-times {root} failed:\n{done.stdout}{done.stderr}")
+        rows.append(json.loads(done.stdout.strip().splitlines()[-1]))
+        log(f"[ab] {label} ({root}): dispatch {rows[-1]['dispatch_us']:.2f} us, cold "
+            f"{rows[-1]['cold_ms_per_step']:.3f} ms/step, warm "
+            f"{[round(x, 3) for x in rows[-1]['warm_ms_per_step']]} ms/step")
+    log(json.dumps({"card": card, "ab_main": rows}))
+
+
 def checkout_dir(path: str) -> str:
     """`path` resolved, where it is this checkout or a directory under its
     git-ignored `_archive/` (a parent unpacked with `git archive`); any
@@ -3999,7 +4496,7 @@ def main() -> int:
         return 2
     # --portfolio-times and --substep-times ROOT LABEL time the package of
     # this checkout or of one unpacked under _archive/
-    times = args[:1] in (["--portfolio-times"], ["--substep-times"])
+    times = args[:1] in (["--portfolio-times"], ["--substep-times"], ["--main-times"])
     package_root = checkout_dir(args[1]) if times else str(ROOT)
     sys.path.insert(0, package_root)
     import torch
@@ -4018,12 +4515,18 @@ def main() -> int:
     if args[:1] == ["--substep-times"]:
         substep_times(args[2])
         return 0
+    if args[:1] == ["--main-times"]:
+        main_times(args[2])
+        return 0
     kind, card = phase_device()
     if args[:1] == ["--ab-portfolio"]:
         ab_portfolio(card, checkout_dir(args[1]))
         return 0
     if args[:1] == ["--ab-substep"]:
         ab_substep(card, checkout_dir(args[1]))
+        return 0
+    if args[:1] == ["--ab-main"]:
+        ab_main(card, checkout_dir(args[1]))
         return 0
     phase_build()
     sync()
@@ -4055,6 +4558,9 @@ def main() -> int:
     if args == ["--specialize"]:
         phase_specialize(card)
         return 0
+    if args == ["--serve"]:
+        print(json.dumps(phase_serve(card)["serve"]))
+        return 0
     walls = {}
 
     def phase(name, fn, *a):
@@ -4078,6 +4584,7 @@ def main() -> int:
     phase("analyze (a)", analyze_pinned_ladder, card)
     phase("analyze cli", analyze_cli_checks, card)
     phase("analyze wrapper", wrapper_prepass, card)
+    serve = phase("serve", phase_serve, card)
     kern.update(phase("portfolio kernels", phase_portfolio_kernels, card, flip["programs"],
                       flip["solving"]))
     phase("engine differential", phase_engine_differential, card)
@@ -4117,10 +4624,12 @@ def main() -> int:
         "launches_walk": analyze["launches_walk"].get(name, 0),
         "launches_walk_gate": analyze["launches_walk_gate"].get(name, 0),
         "launches_solver": solver["launches"][name],
+        "launches_serve": serve["launches"][name],
         **({"launches_many": main_path["launches"]["slot_write_many"],
             "launches_many_symbolic_wave": sym_wave["launches"]["slot_write_many"],
             "launches_many_explore": explore["launches"]["slot_write_many"],
             "launches_many_analyze": analyze["launches"]["slot_write_many"],
+            "launches_many_serve": serve["launches"]["slot_write_many"],
             "host_us_per_call_many": host_us["slot_write_many, 8 banks"]}
            if name == "slot_write" else {}),
         "mismatches": k.pop("mismatches"),
@@ -4133,6 +4642,7 @@ def main() -> int:
         "host_us_per_call": host_us.get(name),
         **k,
     } for name, k in kern.items()]}
+    print(json.dumps({"serve": serve["serve"]}))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

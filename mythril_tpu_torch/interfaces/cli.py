@@ -34,6 +34,19 @@ as `degraded: specialize-failed`.
 the detector screen and the static findings, as text or json), and
 never touches the card. `--fail-on CHECK` exits 1 when the check fires
 on any contract, 2 when the check is unknown.
+
+`serve` runs the persistent analysis service (service/server.py) until
+a drain (SIGTERM, SIGINT or POST /v1/drain), with the JAX package's
+`myth serve` flags and defaults for the single arena, on the card
+unless `--device cpu`; `submit` sends bytecode to a running service and
+prints the report as JSON. The flags of modules the port does not have
+are refused with an error that names the module, rather than ignored:
+`--devices N` above 1 (the device mesh), `--journal` and `--recover`
+(service/journal.py), `--store` (the verdict store, store/store.py),
+`--router` (routing/), `--kernel-pack` and `--kernel-cache` (the
+compile plane), and their environment variables; so is `submit
+--address` (the chain RPC client). `--no-store`, `--no-router` and
+`--no-aot` ask for what the port always does, and are accepted.
 """
 
 from __future__ import annotations
@@ -45,6 +58,17 @@ import sys
 from typing import List, Tuple
 
 ANALYZE_LIST = ("analyze", "a")
+#: `serve` settings whose modules the port lacks: (what asks for it,
+#: the module it needs)
+SERVE_REFUSED = (
+    ("--devices N > 1", "the device mesh (parallel/mesh.py, topology.py)"),
+    ("--journal", "the durable job journal (service/journal.py)"),
+    ("--recover", "the durable job journal (service/journal.py)"),
+    ("--store / MYTHRIL_STORE_DIR", "the verdict store (store/store.py)"),
+    ("--router / MYTHRIL_ROUTER_DIR", "the learned router (routing/)"),
+    ("--kernel-pack", "the compile plane (compileplane/)"),
+    ("--kernel-cache / MYTHRIL_KERNEL_CACHE", "the compile plane (compileplane/)"),
+)
 OUTFORMS = ("text", "markdown", "json", "jsonv2")
 LINT_OUTFORMS = ("text", "json", "jsonv2")
 
@@ -208,7 +232,336 @@ def build_parser() -> argparse.ArgumentParser:
         "delegatecall-to-upgradeable-target, proxy-storage-collision, "
         "tainted-cross-contract-call-arg, untrusted-return-data-in-guard",
     )
+    _add_serve(commands)
+    _add_submit(commands)
     return parser
+
+
+def _add_serve(commands) -> None:
+    """`serve`: the JAX package's `myth serve` flags and defaults."""
+    serve = commands.add_parser(
+        "serve",
+        help="Run the persistent analysis service: a long-lived daemon that "
+        "owns the card and serves analysis jobs over HTTP/JSON",
+    )
+    serve.add_argument("--host", default="127.0.0.1", help="bind address")
+    serve.add_argument(
+        "--port", type=int, default=7341, help="listen port (0 = ephemeral)"
+    )
+    serve.add_argument(
+        "--stripes", type=int, default=4,
+        help="arena stripes (max concurrently-resident contracts)",
+    )
+    serve.add_argument(
+        "--lanes-per-stripe", type=int, default=8, help="device lanes per stripe"
+    )
+    serve.add_argument(
+        "--steps-per-wave", type=int, default=256, help="EVM steps per wave"
+    )
+    serve.add_argument(
+        "--max-waves", type=int, default=2,
+        help="device waves per job before the host walk",
+    )
+    serve.add_argument(
+        "--queue-capacity", type=int, default=64,
+        help="admission queue bound (full queue answers 429)",
+    )
+    serve.add_argument(
+        "--host-workers", type=int, default=1,
+        help="host-analysis worker threads consuming finished stripes",
+    )
+    serve.add_argument(
+        "--no-host-walk", action="store_true",
+        help="device-only reports (skip the per-job host walk)",
+    )
+    serve.add_argument(
+        "--execution-timeout", type=int, default=8,
+        help="seconds of host walk per job",
+    )
+    serve.add_argument(
+        "--transaction-count", type=int, default=2,
+        help="attacker transactions the host walk models",
+    )
+    serve.add_argument(
+        "--checkpoint-dir", default=None,
+        help="where drain checkpoints land (default: a temp dir)",
+    )
+    serve.add_argument(
+        "--no-pipeline", action="store_true",
+        help="lock-step waves: the JAX package's flag, accepted as it is "
+        "the port's only schedule for `serve` (pipelined waves served "
+        "slower on the card; ServiceConfig(pipeline=True) keeps them for "
+        "parity checks)",
+    )
+    serve.add_argument(
+        "--no-specialize", action="store_true",
+        help="disable contract-specialized loops (phase pruning + "
+        "superblock fusion); every wave runs the generic interpreter",
+    )
+    serve.add_argument(
+        "--no-blockjit", action="store_true",
+        help="disable the block-level JIT; specialized loops keep "
+        "superblock fusion only (env: MYTHRIL_NO_BLOCKJIT=1)",
+    )
+    serve.add_argument(
+        "--no-static-prune", action="store_true",
+        help="disable the static layer for the whole service (detector "
+        "pre-screen, seed mask, static-answer triage)",
+    )
+    serve.add_argument(
+        "--no-static-answer", action="store_true",
+        help="keep the static prepass but disable ONLY the static-answer "
+        "triage tier",
+    )
+    serve.add_argument(
+        "--devices", type=int, default=1, metavar="N",
+        help="device groups (the port serves one: N > 1 is refused)",
+    )
+    serve.add_argument(
+        "--observe-out", default=None, metavar="DIR",
+        help="telemetry output directory: degradation flight-recorder "
+        "dumps land here and the drain's final flush prefers it over the "
+        "checkpoint dir (live views: /metrics, /trace)",
+    )
+    serve.add_argument(
+        "--no-observe", action="store_true",
+        help="disable span/attribution/journey telemetry recording",
+    )
+    serve.add_argument(
+        "--capture-queries", default=None, metavar="DIR",
+        help="every SMT query the service's walks solve lands in DIR as a "
+        "replayable artifact; live loss/capture counters at /stats solver.*",
+    )
+    serve.add_argument(
+        "--store", default=None, metavar="DIR",
+        help="cross-run verdict store (not ported: refused)",
+    )
+    serve.add_argument(
+        "--no-store", action="store_true",
+        help="no verdict store tier (the port has none)",
+    )
+    serve.add_argument(
+        "--journal", default=None, metavar="DIR",
+        help="durable job journal (not ported: refused)",
+    )
+    serve.add_argument(
+        "--recover", action="store_true",
+        help="replay the --journal DIR at startup (not ported: refused)",
+    )
+    serve.add_argument(
+        "--no-breakers", action="store_true",
+        help="disable the tier circuit breakers (device dispatch, "
+        "device-first solving, the specialized-kernel tier)",
+    )
+    serve.add_argument(
+        "--quarantine-strikes", type=int, default=2, metavar="N",
+        help="wave-fault strikes before a codehash is quarantined; one "
+        "strike short of N the job runs in a solo wave",
+    )
+    serve.add_argument(
+        "--no-arena-warmup", action="store_true",
+        help="skip the background arena warmup at startup (the build and "
+        "load of the wave's kernels and one all-halt wave): the service "
+        "reports ready at once and the FIRST request pays them",
+    )
+    serve.add_argument(
+        "--health-interval", type=float, default=2.0, metavar="SECONDS",
+        help="cadence of the health/device sampler thread",
+    )
+    serve.add_argument(
+        "--kernel-pack", default=None, metavar="DIR",
+        help="prebaked kernel pack (not ported: refused)",
+    )
+    serve.add_argument(
+        "--kernel-cache", default=None, metavar="DIR",
+        help="persistent compile-artifact cache (not ported: refused)",
+    )
+    serve.add_argument(
+        "--no-aot", action="store_true",
+        help="no AOT export/import (the port has none)",
+    )
+    serve.add_argument(
+        "--router", default=None, metavar="DIR",
+        help="learned tier-ladder router artifacts (not ported: refused)",
+    )
+    serve.add_argument(
+        "--no-router", action="store_true",
+        help="no learned router tier (the port has none)",
+    )
+    serve.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="serve on the card (cuda, the default) or the plain PyTorch "
+        "versions on the CPU",
+    )
+
+
+def _add_submit(commands) -> None:
+    """`submit`: the JAX package's `myth submit` flags."""
+    submit = commands.add_parser(
+        "submit", help="Submit bytecode to a running `serve` instance"
+    )
+    submit.add_argument(
+        "-c", "--code", metavar="BYTECODE",
+        help='hex-encoded bytecode string ("6060604052...")',
+    )
+    submit.add_argument(
+        "-f", "--codefile", metavar="BYTECODEFILE", type=argparse.FileType("r"),
+        help="file containing hex-encoded bytecode string",
+    )
+    submit.add_argument(
+        "--url", default="http://127.0.0.1:7341", help="service base URL"
+    )
+    submit.add_argument(
+        "--address", default=None, metavar="ADDRESS",
+        help="the deployed code at this address (not ported: refused)",
+    )
+    submit.add_argument(
+        "--rpc-url", default=None, metavar="URL",
+        help="execution-client JSON-RPC endpoint for --address",
+    )
+    submit.add_argument(
+        "--max-waves", type=int, default=None, help="device waves override"
+    )
+    submit.add_argument(
+        "--deadline", type=float, default=None,
+        help="per-job wall budget the service supervisor enforces",
+    )
+    submit.add_argument(
+        "--no-host-walk", action="store_true", help="ask for a device-only report"
+    )
+    submit.add_argument(
+        "--idempotency-key", default=None, metavar="KEY",
+        help="dedupe key for this submission (default: a fresh UUID); a "
+        "resubmit with the same key maps to the existing job",
+    )
+    submit.add_argument(
+        "--no-wait", action="store_true",
+        help="print the job id and return without waiting for the report",
+    )
+    submit.add_argument(
+        "--wait-s", type=float, default=120.0,
+        help="how long to wait for the report",
+    )
+
+
+def serve_refusals(args) -> List[str]:
+    """The `serve` settings of modules the port does not have, each
+    with the module it needs."""
+    import os
+
+    asked = {
+        "--devices N > 1": args.devices > 1,
+        "--journal": bool(args.journal),
+        "--recover": args.recover,
+        "--store / MYTHRIL_STORE_DIR": bool(
+            args.store or os.environ.get("MYTHRIL_STORE_DIR")
+        ) and not args.no_store,
+        "--router / MYTHRIL_ROUTER_DIR": bool(
+            args.router or os.environ.get("MYTHRIL_ROUTER_DIR")
+        ) and not args.no_router,
+        "--kernel-pack": bool(args.kernel_pack),
+        "--kernel-cache / MYTHRIL_KERNEL_CACHE": bool(
+            args.kernel_cache or os.environ.get("MYTHRIL_KERNEL_CACHE")
+        ),
+    }
+    return [
+        f"{flag}: needs {module}, which is not ported"
+        for flag, module in SERVE_REFUSED
+        if asked[flag]
+    ]
+
+
+def run_serve(args) -> int:
+    """`serve`: the persistent analysis service until a graceful drain
+    (SIGTERM/SIGINT or POST /v1/drain) completes."""
+    from mythril_tpu_torch import observe
+    from mythril_tpu_torch.service.engine import ServiceConfig
+    from mythril_tpu_torch.service.server import serve_forever
+    from mythril_tpu_torch.support.support_args import args as flags
+
+    refused = serve_refusals(args)
+    if refused:
+        for line in refused:
+            print(f"serve: {line}", file=sys.stderr)
+        return 2
+    if args.no_observe:
+        observe.set_enabled(False)
+    if args.observe_out:
+        observe.configure(out_dir=args.observe_out)
+    if args.capture_queries:
+        observe.configure_capture(args.capture_queries)
+    # the process-wide switches: the host walks in the service pool and
+    # the code cache's feeds read the same flag bag
+    flags.static_prune = not args.no_static_prune
+    flags.blockjit = not args.no_blockjit
+    flags.breakers = not args.no_breakers
+    config = ServiceConfig(
+        stripes=args.stripes,
+        lanes_per_stripe=args.lanes_per_stripe,
+        steps_per_wave=args.steps_per_wave,
+        max_waves=args.max_waves,
+        queue_capacity=args.queue_capacity,
+        host_workers=args.host_workers,
+        host_walk=not args.no_host_walk,
+        execution_timeout=args.execution_timeout,
+        transaction_count=args.transaction_count,
+        checkpoint_dir=args.checkpoint_dir,
+        pipeline=False,
+        specialize=not args.no_specialize,
+        blockjit=not args.no_blockjit,
+        static_answer=not (args.no_static_answer or args.no_static_prune),
+        arena_warmup=not args.no_arena_warmup,
+        health_interval_s=args.health_interval,
+        breakers=not args.no_breakers,
+        quarantine_strikes=args.quarantine_strikes,
+        device=None if args.device == "cuda" else args.device,
+    )
+    serve_forever(config, host=args.host, port=args.port)
+    return 0
+
+
+def run_submit(args) -> int:
+    """`submit`: send bytecode to a running service, print the report
+    (or the job id with --no-wait) as JSON."""
+    from mythril_tpu_torch.service.client import ServiceClient, ServiceError
+
+    if args.address:
+        print(
+            "submit: --address needs the chain RPC client "
+            "(ethereum/interface/rpc), which is not ported",
+            file=sys.stderr,
+        )
+        return 2
+    if args.code:
+        blob = args.code
+    elif args.codefile:
+        blob = "".join(line.strip() for line in args.codefile if line.strip())
+    else:
+        print(
+            "No input bytecode. Provide EVM code via -c BYTECODE or -f "
+            "BYTECODE_FILE",
+            file=sys.stderr,
+        )
+        return 1
+    client = ServiceClient(args.url)
+    try:
+        job_id = client.submit(
+            blob,
+            max_waves=args.max_waves,
+            deadline_s=args.deadline,
+            host_walk=False if args.no_host_walk else None,
+            idempotency_key=args.idempotency_key,
+        )
+        if args.no_wait:
+            print(json.dumps({"job_id": job_id}))
+            return 0
+        print(json.dumps(client.report(job_id, wait_s=args.wait_s), indent=2))
+    except ServiceError as why:
+        # backpressure (429 full / 503 draining) and mistakes (400)
+        # both land here; the exit code flags the failure for scripts
+        print(json.dumps({"error": str(why), "status": why.status}), file=sys.stderr)
+        return 1
+    return 0
 
 
 def exit_with_error(format_: str, message: str, exit_code: int = 2) -> None:
@@ -455,6 +808,11 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.command == "lint":
         return run_lint(args)
+    if args.command == "serve":
+        logging.basicConfig(level=logging.WARNING)
+        return run_serve(args)
+    if args.command == "submit":
+        return run_submit(args)
     if args.command not in ANALYZE_LIST:
         parser.print_help()
         return 2

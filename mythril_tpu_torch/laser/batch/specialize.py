@@ -477,8 +477,15 @@ class SpecializedKernel:
     @staticmethod
     def run_key(batch, code, donate: bool) -> tuple:
         """The warm-cache key of a concrete-run dispatch shape."""
-        return ("run", donate, batch.pc.shape[0], batch.mem.shape[1],
-                batch.stack.shape[1], tuple(code.ops.shape))
+        return SpecializedKernel.shape_key(batch.pc.shape[0], batch.mem.shape[1],
+                                           batch.stack.shape[1], code.ops.shape, donate)
+
+    @staticmethod
+    def shape_key(lanes: int, mem_cap: int, stack_cap: int, code_shape,
+                  donate: bool) -> tuple:
+        """`run_key` from the shapes alone (the service's dispatch decides
+        before its wave's batch exists)."""
+        return ("run", donate, lanes, mem_cap, stack_cap, tuple(code_shape))
 
     def is_warm(self, key) -> bool:
         return key in self._warm

@@ -18,12 +18,14 @@ from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from mythril_tpu_torch.interop import batch_to_numpy
 from mythril_tpu_torch.laser.batch.run import run
 from mythril_tpu_torch.laser.batch.state import (
     CALLDATA_CAP,
     STORAGE_CAP,
+    StateBatch,
     Status,
     batch_from_fields,
     make_batch_numpy,
@@ -313,24 +315,28 @@ def run_cases(cases, max_steps: int = 4096, hybrid: bool = True,
     """Run every case in one batch on `device` (the card unless named);
     return {name: verdict}.
 
-    Lanes still RUNNING after the main pass get one re-run with
-    `straggler_steps` when that is larger than `max_steps`. With
+    Lanes still RUNNING after the main pass run on from there, up to
+    `straggler_steps` in all, when that is larger than `max_steps` (the
+    JAX package re-runs them from the start: the same final state). With
     `hybrid`, lanes the device cannot finish (UNSUPPORTED / capacity)
     are lifted mid-frame into the host engine and judged on the
     continued execution instead of skipping (takeover.py)."""
     device = resolve_device(device)
     batch, code_table = build_batch(cases, device=device)
-    final, _ = run(batch, code_table, max_steps=max_steps, track_coverage=False)
-    final = batch_to_numpy(final)  # one bulk read; verdicts index numpy
+    out, _ = run(batch, code_table, max_steps=max_steps, track_coverage=False)
+    final = batch_to_numpy(out)  # one bulk read; verdicts index numpy
     lanes = {i: (final, i) for i in range(len(cases))}
 
     stragglers = [i for i in range(len(cases))
                   if int(final.status[i]) == Status.RUNNING]
     if stragglers and straggler_steps > max_steps:
-        sub_batch, sub_table = build_batch([cases[i] for i in stragglers],
-                                           device=device)
-        long_run, _ = run(sub_batch, sub_table, max_steps=straggler_steps,
-                          track_coverage=False)
+        # the stragglers go on from where the main pass left them: lanes
+        # step independently, so this is the state a run of
+        # `straggler_steps` from the start reaches, less the first
+        # `max_steps` steps run again
+        idx = torch.tensor(stragglers, device=device)
+        long_run, _ = run(StateBatch(*(t.index_select(0, idx) for t in out)), code_table,
+                          max_steps=straggler_steps - max_steps, track_coverage=False)
         long_run = batch_to_numpy(long_run)
         for j, i in enumerate(stragglers):
             lanes[i] = (long_run, j)

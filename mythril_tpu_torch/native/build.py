@@ -33,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -53,6 +54,10 @@ HOST_STEM = "mythril_torch_host"
 GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
 _LOADED: dict = {}
+#: one build or load at a time in a process: the analysis service's
+#: arena warmup, its wave thread and its host walks' races may all reach
+#: `load` first, and two nvcc runs of one source would share a temp file
+_BUILD_MU = threading.RLock()
 
 
 def nvcc() -> str:
@@ -91,6 +96,11 @@ def build(verbose: bool = False) -> dict:
     source, all started together. Returns {stem: (seconds from the start
     until its nvcc was seen to finish, nvcc's output)} for the sources it
     compiled; `verbose` asks ptxas for its register and spill report."""
+    with _BUILD_MU:
+        return _build(verbose)
+
+
+def _build(verbose: bool) -> dict:
     t0 = time.perf_counter()
     started = {}
     for src in sorted(CSRC.glob("*.cu")):
@@ -126,10 +136,13 @@ def load(stem: str) -> ctypes.CDLL:
     is built first)."""
     lib = _LOADED.get(stem)
     if lib is None:
-        if not (CSRC / f"{stem}.cu").exists():
-            raise FileNotFoundError(CSRC / f"{stem}.cu")
-        build()
-        lib = _LOADED[stem] = ctypes.CDLL(str(lib_path(stem)))
+        with _BUILD_MU:
+            lib = _LOADED.get(stem)
+            if lib is None:
+                if not (CSRC / f"{stem}.cu").exists():
+                    raise FileNotFoundError(CSRC / f"{stem}.cu")
+                build()
+                lib = _LOADED[stem] = ctypes.CDLL(str(lib_path(stem)))
     return lib
 
 

@@ -8,9 +8,10 @@ labels), and capture (`configure_capture(dir)` arms it; each captured
 query's lowered constraint set serializes to `<dir>/q-<sha256>.json`
 in the JAX package's artifact schema, so its solverlab replays the
 port's captures), and the loss waterfall (`record_loss`,
-`loss_reasons`): the JAX package counts it in its metrics registry
-(``mtpu_solver_loss_total``), the port in a plain in-process table
-until the registry is ported (ROADMAP Queue 1 item 9).
+`loss_reasons`), counted as in the JAX package in the metrics registry:
+``mtpu_solver_loss_total{reason,verdict}`` and
+``mtpu_solver_captured_queries_total{origin}``, the series the analysis
+service's ``/stats`` solver block reads.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import os
 import threading
 from contextlib import contextmanager
 from typing import Dict, List, Optional
+
+from mythril_tpu_torch.observe.registry import registry
 
 log = logging.getLogger(__name__)
 
@@ -64,24 +67,41 @@ QUERY_ORIGIN_MEMO_MISS = "memo-miss"
 # the loss waterfall: why the device did not answer a host verdict
 # ---------------------------------------------------------------------------
 
-_LOSS_MU = threading.Lock()
-#: (reason, verdict) -> host-answered verdicts
-_LOSS: Dict = {}
+_LOSS = None
+_CAPTURED = None
+_METRICS_REG = None
+
+
+def _metrics():
+    # the handles re-resolve when the registry instance changes
+    # (reset_registry in tests): a cached child writing to an orphaned
+    # registry would count nothing anyone reads
+    global _LOSS, _CAPTURED, _METRICS_REG
+    if _LOSS is None or _METRICS_REG is not registry():
+        reg = _METRICS_REG = registry()
+        _LOSS = reg.counter(
+            "mtpu_solver_loss_total",
+            "host-answered solver verdicts by device-loss reason",
+        )
+        _CAPTURED = reg.counter(
+            "mtpu_solver_captured_queries_total",
+            "solver queries captured to the flight-recorder corpus",
+        )
+    return _LOSS, _CAPTURED
 
 
 def record_loss(reason: str, verdict: str, site: str = "") -> None:
     """Count one host-answered verdict against the loss taxonomy (not
     gated on the observe switch, as in the JAX package, so the sum of
     the sat losses equals the CDCL's sat count)."""
-    key = (reason or LOSS_UNCLASSIFIED, verdict)
-    with _LOSS_MU:
-        _LOSS[key] = _LOSS.get(key, 0) + 1
+    loss, _captured = _metrics()
+    loss.labels(reason=reason or LOSS_UNCLASSIFIED, verdict=verdict).inc()
 
 
 def loss_marker() -> Dict:
-    """A snapshot of the waterfall, for `loss_reasons(since=...)`."""
-    with _LOSS_MU:
-        return dict(_LOSS)
+    """A registry marker, for `loss_reasons(since=...)`."""
+    _metrics()
+    return registry().marker()
 
 
 def loss_reasons(
@@ -90,13 +110,29 @@ def loss_reasons(
     """The waterfall: {reason: count}, whole-process or as a delta
     since a `loss_marker()`; `verdict="sat"` restricts to host-won
     queries."""
-    base = since or {}
+    _metrics()
+    reg = registry()
+    snap = reg.since(since) if since is not None else reg.snapshot()
     out: Dict[str, int] = {}
-    for (reason, v), n in loss_marker().items():
-        n -= base.get((reason, v), 0)
-        if n and (verdict is None or v == verdict):
-            out[reason] = out.get(reason, 0) + n
+    for key, value in (snap.get("mtpu_solver_loss_total") or {}).items():
+        labels = dict(key)
+        if verdict is not None and labels.get("verdict") != verdict:
+            continue
+        reason = labels.get("reason", LOSS_UNCLASSIFIED)
+        if int(value):
+            out[reason] = out.get(reason, 0) + int(value)
     return out
+
+
+def captured_total(since: Optional[Dict] = None) -> int:
+    """Queries captured to disk (process total, or the delta since a
+    `loss_marker()`)."""
+    _metrics()
+    reg = registry()
+    snap = reg.since(since) if since is not None else reg.snapshot()
+    return int(
+        sum((snap.get("mtpu_solver_captured_queries_total") or {}).values())
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +352,8 @@ def capture_query(
             with open(tmp, "w") as fp:
                 json.dump(artifact, fp, sort_keys=True)
             os.replace(tmp, path)
+        _loss, captured = _metrics()
+        captured.labels(origin=artifact["origin"]).inc()
         return path
     except Exception:
         log.debug("query capture failed", exc_info=True)

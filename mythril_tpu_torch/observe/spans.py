@@ -1,7 +1,9 @@
-"""Structured spans and the flight recorder.
+"""Structured spans, the flight recorder and its Perfetto export.
 
-The port's copy of the JAX package's observe/spans.py, without its
-Perfetto export (which the port's CLI will bring).
+The port's copy of the JAX package's observe/spans.py: the analysis
+service serves the recent tail at ``/trace`` (``?format=perfetto`` for
+a Chrome/Perfetto trace-event document, `to_perfetto`), and a drained
+service leaves the ring beside its checkpoints (`export_trace`).
 
 `trace(name, **attrs)` opens one span: monotonic start/end timestamps,
 the caller's thread, an optional device-group *track*, and a parent
@@ -22,6 +24,8 @@ with `FlightRecorder.add` on the "device" track).
 from __future__ import annotations
 
 import itertools
+import json
+import os
 import threading
 import time
 from collections import deque
@@ -46,6 +50,22 @@ class Span:
         self.tid = tid
         self.track = track
         self.attrs = attrs
+
+    def as_dict(self) -> Dict:
+        out = {
+            "sid": self.sid,
+            "parent": self.parent,
+            "name": self.name,
+            "t0": round(self.t0, 6),
+            "t1": round(self.t1, 6),
+            "dur_s": round(self.t1 - self.t0, 6),
+            "thread": self.tid,
+        }
+        if self.track is not None:
+            out["track"] = self.track
+        if self.attrs:
+            out["attrs"] = self.attrs
+        return out
 
 
 class FlightRecorder:
@@ -173,3 +193,97 @@ def trace(name: str, track: Optional[str] = None, **attrs):
     if not observe.enabled():
         return _NULL
     return _TraceCtx(name, track, attrs or None)
+
+
+# ---------------------------------------------------------------------------
+# Perfetto / Chrome trace-event export
+# ---------------------------------------------------------------------------
+def to_perfetto(spans: Optional[List[Span]] = None) -> Dict:
+    """Render spans as Chrome trace-event JSON (the `traceEvents`
+    array form Perfetto loads directly): one complete ("ph": "X")
+    event per span with microsecond timestamps, plus thread_name
+    metadata so tracks are labeled. Spans with a device-group `track`
+    render on that track (device timelines beside host threads)."""
+    if spans is None:
+        spans = _RECORDER.tail(len(_RECORDER))
+    events: List[Dict] = []
+    tids: Dict[str, int] = {}
+
+    def tid_of(label: str) -> int:
+        tid = tids.get(label)
+        if tid is None:
+            tid = tids[label] = len(tids) + 1
+        return tid
+
+    pid = os.getpid()
+    base = min((s.t0 for s in spans), default=0.0)
+    for span in spans:
+        label = span.track if span.track is not None else span.tid
+        events.append(
+            {
+                "name": span.name,
+                "ph": "X",
+                "ts": int((span.t0 - base) * 1e6),
+                "dur": max(1, int((span.t1 - span.t0) * 1e6)),
+                "pid": pid,
+                "tid": tid_of(label),
+                "args": dict(span.attrs or {}, sid=span.sid,
+                             parent=span.parent),
+            }
+        )
+    for label, tid in tids.items():
+        events.append(
+            {
+                "name": "thread_name",
+                "ph": "M",
+                "pid": pid,
+                "tid": tid,
+                "args": {"name": label},
+            }
+        )
+    return {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "otherData": {"source": "mythril_tpu_torch.observe"},
+    }
+
+
+def export_trace(path: str, spans: Optional[List[Span]] = None) -> str:
+    """Write the Perfetto JSON to `path` (atomic tmp+rename, the
+    checkpoint writer's idiom) and return the path."""
+    doc = to_perfetto(spans)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as fp:
+        json.dump(doc, fp)
+    os.replace(tmp, path)
+    return path
+
+
+def overlap_fraction(
+    spans: Optional[List[Span]] = None, name: str = "wave.device"
+) -> float:
+    """Fraction of the covered time that >= 2 spans named `name` were
+    simultaneously open — the span-derived pipelining overlap figure
+    chip_smoke.py reports for the service's pipelined waves. 0.0 when
+    fewer than two such spans exist."""
+    if spans is None:
+        spans = _RECORDER.tail(len(_RECORDER))
+    marks = []
+    for span in spans:
+        if span.name == name and span.t1 > span.t0:
+            marks.append((span.t0, 1))
+            marks.append((span.t1, -1))
+    if len(marks) < 4:
+        return 0.0
+    marks.sort()
+    covered = overlapped = 0.0
+    depth = 0
+    prev = marks[0][0]
+    for t, d in marks:
+        if depth >= 1:
+            covered += t - prev
+        if depth >= 2:
+            overlapped += t - prev
+        depth += d
+        prev = t
+    return round(overlapped / covered, 4) if covered > 0 else 0.0

@@ -24,15 +24,25 @@ production serving stacks wrap around flaky dependencies:
 `allow()` is non-consuming: callers may consult it more than once per
 operation; state only moves on `record_success`/`record_failure`.
 
-Breakers are process-wide, keyed by tier name (`breaker(tier)`).
+Breakers are process-wide, keyed by tier name (`breaker(tier)`), and
+surfaced three ways: `mtpu_breaker_state{tier}` gauges (0 closed /
+1 half-open / 2 open) + `mtpu_breaker_trips_total{tier}` counters,
+`/stats breaker.*`, and `breaker-open:<tier>` entries in the
+HealthMonitor redline vocabulary (observe/slo.py) so the federation
+front can see a replica serving in fallback mode.
 
-The port's copy of the JAX package's support/breaker.py, cut to what
-the explorer's device-solve tier uses: no metrics-registry gauges (the
-port has no registry yet), no board stats or health reasons (no
-service yet), no off switch (`--no-breakers` comes with the CLI). Like
-resilience.py, this module is dependency-free (threading only): it
-must keep working precisely when the accelerator stack is the thing
-that is failing.
+Like resilience.py, this module is dependency-free (threading only;
+the registry import is guarded, and a failed export never sinks the
+tier) — it must keep working precisely when the accelerator stack is
+the thing that is failing. `--no-breakers`
+(support_args.breakers) disables the whole layer: every tier then
+behaves exactly as before this module existed.
+
+The port's copy of the JAX package's support/breaker.py, less the
+store and compile-plane tiers, whose layers the port does not have. The
+port wires the explorer's device-solve tier and the analysis service's
+device tier (wave dispatch) and kernel tier (bucket warmups and
+specialized waves).
 """
 
 from __future__ import annotations
@@ -41,18 +51,23 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 log = logging.getLogger(__name__)
 
-#: breaker states
+#: breaker states (the gauge value is the index in STATES)
 STATE_CLOSED = "closed"
 STATE_HALF_OPEN = "half-open"
 STATE_OPEN = "open"
+STATES = (STATE_CLOSED, STATE_HALF_OPEN, STATE_OPEN)
 
-#: the tier the port wires: the explorer's device-first solver funnel
-#: (the JAX package's other tiers come with their layers)
-TIER_DEVICE_SOLVE = "device-solve"
+#: the wired tier names (the board is open-ended)
+TIER_DEVICE = "device"  # the service's device wave dispatch
+TIER_DEVICE_SOLVE = "device-solve"  # device-first solver funnel
+TIER_KERNEL = "kernel"  # the service's bucket warmups and specialized waves
+
+#: the redline-vocabulary prefix (observe/slo.py REDLINE_BREAKER_OPEN)
+REASON_PREFIX = "breaker-open"
 
 
 class CircuitBreaker:
@@ -81,6 +96,35 @@ class CircuitBreaker:
         self.failures = 0
         self.successes = 0
         self.trips = 0
+        self._export_state()
+
+    # -- metrics -------------------------------------------------------
+    def _export_state(self) -> None:
+        try:
+            from mythril_tpu_torch.observe.registry import registry
+
+            registry().gauge(
+                "mtpu_breaker_state",
+                "tier circuit-breaker state "
+                "(0=closed, 1=half-open, 2=open)",
+            ).labels(tier=self.tier).set(STATES.index(self._state))
+            registry().counter(
+                "mtpu_breaker_trips_total",
+                "breaker transitions into the open state, by tier",
+            ).labels(tier=self.tier).inc(0)
+        except Exception:  # telemetry must never sink the tier
+            pass
+
+    def _count_trip(self) -> None:
+        try:
+            from mythril_tpu_torch.observe.registry import registry
+
+            registry().counter(
+                "mtpu_breaker_trips_total",
+                "breaker transitions into the open state, by tier",
+            ).labels(tier=self.tier).inc()
+        except Exception:
+            pass
 
     # -- state machine -------------------------------------------------
     @property
@@ -98,6 +142,7 @@ class CircuitBreaker:
             and self._clock() - self._opened_t >= self.recovery_s
         ):
             self._state = STATE_HALF_OPEN
+            self._export_state()
 
     def allow(self) -> bool:
         """May the protected tier be attempted right now? Closed and
@@ -117,6 +162,7 @@ class CircuitBreaker:
                 self._state = STATE_CLOSED
                 self._opened_t = None
                 self._outcomes.clear()
+                self._export_state()
                 log.info("breaker [%s] closed after a healthy probe",
                          self.tier)
 
@@ -149,12 +195,41 @@ class CircuitBreaker:
         self._opened_t = self._clock()
         self.trips += 1
         self._consecutive = 0
+        self._export_state()
+        self._count_trip()
         log.warning(
             "breaker [%s] OPEN (trip %d)%s — routing around the tier "
             "for %.0fs",
             self.tier, self.trips, f": {detail}" if detail else "",
             self.recovery_s,
         )
+
+    # -- test / operator hooks -----------------------------------------
+    def force_open(self) -> None:
+        with self._mu:
+            if self._state != STATE_OPEN:
+                self._trip("forced open")
+
+    def reset(self) -> None:
+        with self._mu:
+            self._state = STATE_CLOSED
+            self._consecutive = 0
+            self._outcomes.clear()
+            self._opened_t = None
+            self._export_state()
+
+    def stats(self) -> Dict:
+        with self._mu:
+            self._maybe_half_open()
+            return {
+                "state": self._state,
+                "failures": self.failures,
+                "successes": self.successes,
+                "trips": self.trips,
+                "consecutive_failures": self._consecutive,
+                "failure_threshold": self.failure_threshold,
+                "recovery_s": self.recovery_s,
+            }
 
 
 # ---------------------------------------------------------------------------
@@ -185,18 +260,49 @@ def configure(tier: str, **kwargs) -> CircuitBreaker:
         return br
 
 
+def breakers_enabled() -> bool:
+    """The --no-breakers switch (rides the global flag bag like the
+    static/specialize/store switches)."""
+    from mythril_tpu_torch.support.support_args import args
+
+    return bool(getattr(args, "breakers", True))
+
+
 def allow(tier: str) -> bool:
-    """One-line guard for call sites: does `tier`'s breaker admit the
-    attempt?"""
+    """One-line guard for call sites: True when breakers are disabled
+    or `tier`'s breaker admits the attempt."""
+    if not breakers_enabled():
+        return True
     return breaker(tier).allow()
 
 
 def record(tier: str, ok: bool, detail: str = "") -> None:
-    """Feed one outcome to `tier`'s breaker."""
+    """Feed one outcome to `tier`'s breaker (no-op when disabled)."""
+    if not breakers_enabled():
+        return
     if ok:
         breaker(tier).record_success()
     else:
         breaker(tier).record_failure(detail)
+
+
+def open_reasons() -> List[str]:
+    """`breaker-open:<tier>` for every OPEN breaker — the redline
+    entries the HealthMonitor folds into /healthz (half-open probes
+    are recovery in progress, not a redline)."""
+    with _BOARD_MU:
+        board = list(_BOARD.values())
+    return [
+        f"{REASON_PREFIX}:{br.tier}"
+        for br in board
+        if br.state == STATE_OPEN
+    ]
+
+
+def board_stats() -> Dict[str, Dict]:
+    with _BOARD_MU:
+        board = dict(_BOARD)
+    return {tier: br.stats() for tier, br in board.items()}
 
 
 def reset_all() -> None:

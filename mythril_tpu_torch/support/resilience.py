@@ -98,6 +98,10 @@ class DegradationReason:
     #: fuse or block-program table) raised on the host: the waves run
     #: the generic kernel, whose results the specialized one equals
     SPECIALIZE_FAILED = "specialize-failed"
+    #: the analysis service's arena warmup (service/engine.py) failed:
+    #: a kernel library did not build or load, or the warmup wave
+    #: faulted; the replica stays redlined, never ready
+    ARENA_WARMUP_FAILED = "arena-warmup-failed"
     #: a poison job — implicated in repeated wave faults (in-process
     #: strike counter fed by wave-fault attribution plus a
     #: crash-implication strike at journal recovery) — was isolated to
@@ -141,6 +145,18 @@ class DegradationLog(object, metaclass=Singleton):
     def record(
         self, reason: str, site: str = "", detail: str = "", contract: str = ""
     ) -> None:
+        try:
+            # the registry mirror (reason label only — site/contract
+            # stay out of the label set to bound cardinality): the SLO
+            # engine's wave-abandon objective burns against this
+            from mythril_tpu_torch.observe.registry import registry
+
+            registry().counter(
+                "mtpu_degradations_total",
+                "degradation events by reason (resilience taxonomy)",
+            ).labels(reason=reason).inc()
+        except Exception:
+            pass  # telemetry must never sink the degradation record
         with self._lock:
             self.counts[reason] = self.counts.get(reason, 0) + 1
             self.events.append(

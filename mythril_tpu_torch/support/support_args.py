@@ -78,6 +78,10 @@ class Args(object, metaclass=Singleton):
         # device evidence alone. auto owns; never sends every contract
         # to the host walk, with its prepass outcome injected.
         self.device_ownership = "auto"
+        # Tier circuit breakers (support/breaker.py, `serve
+        # --no-breakers`): the explorer's device-solve tier and the
+        # analysis service's device and kernel tiers. On by default.
+        self.breakers = True
 
 
 args = Args()

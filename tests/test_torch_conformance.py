@@ -123,6 +123,30 @@ def test_hybrid_is_not_ported_yet(cases):
     assert set(plain.values()) == {"pass"}
 
 
+def test_stragglers_run_on_to_the_state_a_fresh_run_reaches(monkeypatch):
+    """run_cases continues its stragglers from where the main pass left
+    them: the same final state, field by field, as the JAX package's
+    re-run from the start (here with small budgets on a forever-OOG
+    case: 32 steps then on to 96, against 96 from the start)."""
+    from mythril_tpu_torch.interop import batch_to_numpy
+    from mythril_tpu_torch.laser.batch.run import run
+
+    (case,) = [c for c in tconf.load_vmtests()[0]
+               if c.name == "vmIOandFlowOperations/BlockNumberDynamicJump0_foreverOutOfGas"]
+    views = []
+    real = tconf._verdict
+    monkeypatch.setattr(tconf, "_verdict", lambda c, view, lane: views.append(
+        (view, lane)) or real(c, view, lane))
+    tconf.run_cases([case], max_steps=32, straggler_steps=96, hybrid=False, device="cpu")
+    batch, table = tconf.build_batch([case], device="cpu")
+    fresh = batch_to_numpy(run(batch, table, max_steps=96, track_coverage=False)[0])
+    (view, lane), = views
+    for name in fresh._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(view, name))[lane],
+                                      np.asarray(getattr(fresh, name))[0], err_msg=name)
+    assert int(view.status[lane]) == tconf.Status.RUNNING
+
+
 def test_pinned_verdicts_cover_the_corpus():
     pinned = json.loads(PINNED.read_text())
     assert pinned["settings"] == PIN_SETTINGS

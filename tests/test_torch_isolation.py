@@ -15,7 +15,9 @@ through the host solver stack (`get_model`: the bit-blaster and the
 CDCL of the port's own g++ library), the host walk of a contract under
 `--device-ownership never` (the LASER engine, its plugins and the
 detection modules), the static pass (`summary_for`) and the `lint`
-command, a hybrid VMTests case (the host takeover) and an
+command, a hybrid VMTests case (the host takeover), a job through the
+analysis service (service/: its HTTP server, engine and client, the
+metrics registry's exposition) and the `serve` command's parsing, and an
 import of every module of the package (crypto/ and the precompiles
 among them), and checks that `jax` never
 entered `sys.modules`, that no module of the JAX package did either,
@@ -126,6 +128,19 @@ assert [i["swc-id"] for i in walked["issues"]] == ["106"], walked["issues"]
 from mythril_tpu_torch.laser import conformance
 (case,) = [c for c in conformance.load_vmtests()[0] if c.name == "vmSha3Test/sha3_bigOffset2"]
 assert conformance.run_cases([case], device="cpu") == {case.name: "pass"}
+from mythril_tpu_torch.observe.registry import registry
+from mythril_tpu_torch.service.client import ServiceClient
+from mythril_tpu_torch.service.engine import ServiceConfig
+from mythril_tpu_torch.service.server import AnalysisServer
+srv = AnalysisServer(ServiceConfig(stripes=1, lanes_per_stripe=4, steps_per_wave=32,
+                                   host_walk=False, device="cpu")).start()
+client = ServiceClient(srv.url)
+job = client.report(client.submit("33ff"), wait_s=120)
+srv.close()
+assert job["report"]["device"]["triggers"] == {"selfdestruct": 1}, job
+assert "# TYPE mtpu_service_waves_total counter" in registry().prometheus_text()
+serve_args = cli.build_parser().parse_args(["serve", "--device", "cpu", "--port", "0"])
+assert cli.serve_refusals(serve_args) == []
 import importlib, pkgutil
 import mythril_tpu_torch
 for mod in pkgutil.walk_packages(mythril_tpu_torch.__path__, "mythril_tpu_torch."):
@@ -196,6 +211,7 @@ def test_entry_points_without_device_raise_where_no_cuda():
     from mythril_tpu_torch.laser.smt import terms as T
     from mythril_tpu_torch.laser.smt.solver import device_race, portfolio
     from mythril_tpu_torch.ops.keccak import keccak256
+    from mythril_tpu_torch.service.engine import AnalysisEngine
 
     wave_np = interop.symbatch_to_numpy(symbolic_wave.make_wave(1, 2, device="cpu")[0])
     x = T.bv_var("iso_nodev_x", 8)
@@ -216,7 +232,9 @@ def test_entry_points_without_device_raise_where_no_cuda():
                  lambda: explore.DeviceSymbolicExplorer("33ff"),
                  lambda: corpus.analyze_corpus([("33ff33ff", "", "k")]),
                  lambda: replay.replay_sequence({"steps": []}, 0),
-                 lambda: cli.main(["analyze", "--bin-runtime", "-c", "33ff33ff"])):
+                 lambda: cli.main(["analyze", "--bin-runtime", "-c", "33ff33ff"]),
+                 lambda: AnalysisEngine(),
+                 lambda: cli.main(["serve", "--port", "0"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
