@@ -18,6 +18,16 @@
     python3 chip_smoke.py --serve           # device, build, the kernel
                                             # phases, then only the
                                             # analysis service (phase 9b)
+    python3 chip_smoke.py --facade          # device, build, the kernel
+                                            # phases, then only the analyzer
+                                            # facade's command-line checks
+                                            # and SymExecWrapper's prepass
+    python3 chip_smoke.py --ab-overlap      # device, build, the kernel
+                                            # phases, then the 13 vendored
+                                            # contracts through `analyze`:
+                                            # the overlapped corpus prepass
+                                            # against prepass-first, in the
+                                            # order O, P, P, O
     python3 chip_smoke.py --solver          # device, build, the pinned wave
                                             # (phase 6), then only the host
                                             # solver stack (phase 6b)
@@ -42,8 +52,8 @@
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 non-zero (nothing is caught). They run one at a time, each alone on
 the card, in the order 1-12 (5b after 5, 9b after 9); 9 runs (b), (a) (a
-process of its own), the command-line checks (subprocesses, one at a time)
-and the wrapper's own prepass.
+process of its own), the command-line checks (through the analyzer
+facade, in this process, one at a time) and the wrapper's own prepass.
 
 1. device: require CUDA; print the card's name and power limit, the
    host's CPU model and the host's dispatch time per trivial CUDA launch
@@ -207,17 +217,33 @@ and the wrapper's own prepass.
    complete. Every device witness of both is replayed on the CPU to its
    pc (analysis/replay.py; a walk's witnesses that do not replay are
    counted); all four of the explorer's kernels must launch in (b) (the
-   kernels line's `launches_analyze`). Then the command line, one
-   subprocess at a time: the milestone corpus through `python -m
-   mythril_tpu_torch analyze --bin-runtime -f ... -f ... -t 2 -o json`,
-   which must exit 0 with both contracts owned, SWC-106 at pc 15 and
-   SWC-110 at pc 0, and a third file, CLEAN (the JAX corpusgen's
-   clean_contract(0)), statically answered (no issue, no lane: stderr
-   names it), and each milestone contract alone through `-c` (the same
-   issues), gated_kill with `--no-specialize` (the generic kernel) and
-   always_assert with `--no-blockjit` (fused substeps only); gated_kill again under `--device-ownership never` (walked on
-   the host, the same issue); origin.sol.o, which the device does not
-   own, through `-f` (exit 0, the JAX pin's issues from the host walk);
+   kernels line's `launches_analyze`). Then the command line, through
+   the analyzer facade (mythril/: `MythrilDisassembler`,
+   `MythrilAnalyzer.fire_lasers`, as the JAX `myth analyze` runs it),
+   in this process (`cli.main`, so the kernels stay loaded and the
+   launch counters read each run), each run held to the JAX facade's
+   pin (tests/test_torch_facade_pinned.json, the command line's
+   defaults): `-c` gated_kill and `-c` HASHKILL (SymExecWrapper's own
+   prepass on the card, then the walk; their launches are the kernels
+   line's `launches_facade`, where keccak_sponge and slot_write must
+   launch); `-c` gated_kill under `--no-specialize` (no explorer
+   specialized) and `-c` always_assert under `--no-blockjit` (no block
+   substep), each with the default's issues; gated_kill, always_assert,
+   CLEAN and HASHKILL as four `-f` files (the overlapped corpus prepass
+   on a thread beside the walk of every contract, on the card: SWC-106
+   and SWC-110, exit 0, not partial; the prepass's waves and wall, the
+   walks it served with the card off and the walks' waits on
+   HOST_SYMBOLIC_LOCK printed; its launches `launches_facade_corpus`),
+   and again under `--device-ownership never` (the prepass owning
+   nothing, the same issues); `--deadline 1` on the race gate,
+   gated_kill and always_assert (partial, the gate complete and the
+   rest skipped, exit 0; with `--on-timeout fail`, exit 1 and "Analysis
+   deadline expired"); origin.sol.o, which the device does not own,
+   through `-f`; the race gate under `--device-prepass never
+   --device-solving never` (no portfolio launch, the gate closed in the
+   loss waterfall); `-j` (the statespace's node and edge counts) and
+   `-g` on gated_kill; `disassemble` of suicide.sol.o and
+   `function-to-hash` (the JAX text); and
    `python -m mythril_tpu_torch lint -f ... -o json` on the 13 vendored
    contracts (no card), its rows but the wall times equal to the JAX
    `myth lint` rows pinned in tests/test_torch_static_lint_pinned.json.
@@ -284,7 +310,7 @@ and the wrapper's own prepass.
 13. report: the `serve` line, then the `kernels` JSON line (each kernel's
    launches on every path: main, symbolic wave, flip frontier, explore,
    analyze, the vendored walks of analyze (b), the race gate's walk,
-   solver, serve; for
+   solver, serve, the facade's `-c` runs and its corpus run; for
    fused_substep and block_substep also `launches_spec_wave`, the 5b
    wave of their mode), then the result line.
 
@@ -2980,19 +3006,111 @@ LINT_PIN = ROOT / "tests" / "test_torch_static_lint_pinned.json"
 STATIC_COUNTERS = ("static_summaries", "static_pruned_flips", "static_seeds_dropped")
 
 
-def analyze_cli(*argv, command="analyze", stderr=None):
-    """One `python -m mythril_tpu_torch analyze` (or `command`) on the
-    card, in a subprocess: (exit code, stdout, seconds); its stderr is
-    appended to the list `stderr` where one is given."""
+#: the JAX facade's results on the command line's defaults
+#: (tests/test_torch_facade.py --pin-facade, "chip")
+FACADE_PIN = ROOT / "tests" / "test_torch_facade_pinned.json"
+#: a --deadline that expires during the first walk of the deadline check's
+#: corpus, the race gate's (its queries outlast the CDCL sprint on any
+#: host, and clamp to the deadline), before gated_kill and always_assert
+FACADE_DEADLINE_S = 1.0
+#: the facade's corpus check: the milestone corpus, CLEAN, and HASHKILL,
+#: the one whose waves run SHA3 (no other does, so keccak_sponge would
+#: not launch)
+FACADE_CORPUS_NAMES = ("gated_kill", "always_assert", "clean", "hashkill")
+
+
+def facade_cli(*argv, command="analyze"):
+    """One `python -m mythril_tpu_torch COMMAND ARGV` in this process
+    (`cli.main`, which the module's entry calls), on the card: (exit
+    code, stdout, stderr, seconds). In-process, so that the kernels stay
+    loaded and the launch counters read the run; the flag bag is put
+    back after, so later phases keep their own settings."""
+    import contextlib
+    import io
+
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.support.support_args import args as flags
+
+    saved = dict(vars(flags))
+    out, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mythril_tpu_torch", command, *argv],
-                          cwd=ROOT, capture_output=True, text=True, timeout=600)
-    if proc.returncode not in (0, 1):
-        raise SystemExit(f"{command} {' '.join(argv)} failed ({proc.returncode}):\n"
-                         f"{proc.stderr[-4000:]}")
-    if stderr is not None:
-        stderr.append(proc.stderr)
-    return proc.returncode, proc.stdout, time.perf_counter() - t0
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                rc = cli.main([command, *argv])
+            except SystemExit as exit_:
+                rc = exit_.code
+    finally:
+        vars(flags).clear()
+        vars(flags).update(saved)
+    sync()
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def facade_fingerprints(doc):
+    """{contract file name: sorted [swc-id, address, title, severity,
+    function]} of a json report (the facade pin's form)."""
+    out = {}
+    for i in doc["issues"]:
+        out.setdefault(Path(i["contract"]).name, []).append(
+            [i["swc-id"], i["address"], i["title"], i["severity"], i["function"]])
+    return {name: sorted(rows) for name, rows in out.items()}
+
+
+@contextmanager
+def recorded_prepasses():
+    """Every OverlappedPrepass the facade starts, with its device, its
+    final outcomes, how many walks it served with the device off, and
+    how long the walks (this thread) waited on HOST_SYMBOLIC_LOCK."""
+    import threading
+
+    from mythril_tpu_torch.analysis import corpus
+
+    real = corpus.OverlappedPrepass
+    seen = []
+
+    class TimedLock:
+        def __init__(self, lock, record):
+            self.lock, self.record = lock, record
+
+        def __enter__(self):
+            t0 = time.perf_counter()
+            self.lock.acquire()
+            if threading.current_thread() is threading.main_thread():
+                self.record["walk_lock_wait_s"] += time.perf_counter() - t0
+            return self
+
+        def __exit__(self, *exc):
+            self.lock.release()
+
+    class Recorded(real):
+        def __init__(self, *a, **kw):
+            self.record = {"device": str(kw.get("device")), "ownership": kw.get("ownership"),
+                           "walk_lock_wait_s": 0.0, "final": None, "t0": time.perf_counter()}
+            seen.append(self.record)
+            super().__init__(*a, **kw)
+            self.lock = TimedLock(self.lock, self.record)
+
+        def finish(self):
+            final = super().finish()
+            self.record.update(final=final, deviceless=self.deviceless,
+                               wall_s=time.perf_counter() - self.record["t0"])
+            return final
+
+    corpus.OverlappedPrepass = Recorded
+    try:
+        yield seen
+    finally:
+        corpus.OverlappedPrepass = real
+
+
+def prepass_line(rec):
+    """The overlapped prepass's numbers, for the log."""
+    stats = next((o["stats"] for o in (rec["final"] or {}).values() if o.get("stats")), {})
+    return (f"prepass on {rec['device']}: {stats.get('waves')} waves, "
+            f"{stats.get('wall_s')} s of exploration, {rec.get('wall_s', 0):.3f} s "
+            f"start to finish; {rec.get('deviceless')} walk(s) device-less; the walks waited "
+            f"{rec['walk_lock_wait_s']:.3f} s on HOST_SYMBOLIC_LOCK")
 
 
 def static_counters(explorers):
@@ -3187,81 +3305,259 @@ def vendored_ladder_run(out_path, device=None):
         "degraded": resilience.DegradationLog().counts}))
 
 
-def analyze_cli_checks(card):
-    """The command line on the card, in subprocesses: the milestone
-    corpus (SWC-106 and SWC-110, both owned) as two files and each
-    contract through `-c`; gated_kill under `--device-ownership never`
-    (walked on the host, the same issue); origin.sol.o, which the device
-    does not own, through `-f` (walked, the JAX pin's issues)."""
+def facade_checks(card):
+    """The command line, through the analyzer facade, on the card, in
+    this process (`facade_cli`), each run held to the JAX facade's pin
+    (FACADE_PIN): `-c` gated_kill and `-c` HASHKILL (SymExecWrapper's own
+    prepass, then the walk; together `launches_facade`), `-c` gated_kill
+    under `--no-specialize` and `-c` always_assert under `--no-blockjit`,
+    the four-file corpus (FACADE_CORPUS_NAMES: the overlapped prepass
+    beside the walks, `launches_facade_corpus`), the same corpus under
+    `--device-ownership never`, origin.sol.o through `-f` (the device does
+    not own it), `--deadline` expiring mid-corpus (partial, exit 0; with
+    `--on-timeout fail`, exit 1), `--device-solving never` on the race
+    gate (no portfolio launch, the gate closed), `-j` and `-g`,
+    `disassemble` and `function-to-hash` against the JAX text, and
+    `lint` against the JAX rows."""
     import tempfile
 
-    err = []
-    with tempfile.TemporaryDirectory() as tmp:
-        files = []
-        for name, code in MILESTONE + (CLEAN,):
-            path = Path(tmp) / name
-            path.write_text(code + "\n")
-            files += ["-f", str(path)]
-        rc, out, secs = analyze_cli("--bin-runtime", *files, "-t", "2", "-o", "json",
-                                    stderr=err)
-        answered = f"static-answered (1 of 3, not explored): {Path(tmp) / CLEAN[0]}"
-    doc = json.loads(out)
-    got = {(Path(i["contract"]).name, i["swc-id"], i["address"], i["title"], i["severity"])
-           for i in doc["issues"]}
-    want = {(name,) + ANALYZE_SWC[name] for name, _ in MILESTONE}
-    log(f"[analyze cli] the milestone corpus and CLEAN as three -f files: exit {rc}, "
-        f"{secs:.1f} s, issues {sorted(got)}, partial {doc.get('partial', False)}, "
-        f"stderr {err[0].strip()!r} on {card}")
-    if rc != 0 or doc.get("partial") or got != want or answered not in err[0].splitlines():
-        raise SystemExit(f"analyze cli: the milestone corpus gave exit {rc}, {sorted(got)}, "
-                         f"stderr {err[0][-2000:]!r}; want both owned and {sorted(want)}, "
-                         f"CLEAN statically answered")
-    # each contract alone, one on the generic kernel and one on the
-    # fuse-only kernels: the same issues as the default's
-    for (name, code), flag in zip(MILESTONE, ("--no-specialize", "--no-blockjit")):
-        rc, out, secs = analyze_cli("--bin-runtime", "-c", code, "-t", "2", "-o", "json", flag)
-        issues = [(i["swc-id"], i["address"], i["title"], i["severity"], i["function"])
-                  for i in json.loads(out)["issues"]]
-        log(f"[analyze cli] -c {code} {flag}: exit {rc}, {secs:.1f} s, issues {issues}")
-        if rc != 0 or issues != [ANALYZE_SWC[name] + ("fallback",)]:
-            raise SystemExit(f"analyze cli: -c {code} {flag} gave exit {rc}, {issues}")
-    # every contract walked on the host: the same issues, nothing owned
-    rc, out, secs = analyze_cli("--bin-runtime", "-c", MILESTONE[0][1], "-t", "2", "-o",
-                                "json", "--device-ownership", "never")
-    issues = [(i["swc-id"], i["address"], i["title"], i["severity"])
-              for i in json.loads(out)["issues"]]
-    log(f"[analyze cli] --device-ownership never -c {MILESTONE[0][1]}: exit {rc}, "
-        f"{secs:.1f} s, issues {issues}")
-    if rc != 0 or issues != [ANALYZE_SWC[MILESTONE[0][0]]]:
-        raise SystemExit(f"analyze cli: --device-ownership never gave exit {rc}, {issues}")
-    # a contract the device does not own, walked on the host: the JAX pin's issues
-    pin = {name: fps for name, _, fps in json.loads(VENDORED_LADDER_PIN.read_text())["contracts"]}
     from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.laser.smt.solver import device_race
 
-    rc, out, secs = analyze_cli("--bin-runtime", "-f", str(wave.CONTRACTS / CLI_UNOWNED),
-                                "-t", "2", "-o", "json")
-    doc = json.loads(out)
-    fps = issue_fingerprints(doc)
-    log(f"[analyze cli] -f {CLI_UNOWNED} (not owned: walked on the host): exit {rc}, "
-        f"{secs:.1f} s, issues {[fp[:5] for fp in fps]}")
-    if rc != 0 or doc.get("partial") or fps != pin[CLI_UNOWNED]:
-        raise SystemExit(f"analyze cli: -f {CLI_UNOWNED} gave exit {rc}, {fps}; want the JAX "
-                         f"pin's {pin[CLI_UNOWNED]}")
-    # the static layer alone, no card: the JAX `myth lint` rows
+    pin = json.loads(FACADE_PIN.read_text())["chip"]
+    out = {}
+    # -c: one contract, its own device prepass then the walk
+    reset_launches()
+    for name, code in (MILESTONE[0], ("hashkill", HASHKILL)):
+        rc, text, err, secs = facade_cli("--bin-runtime", "-c", code, "-t", "2", "-o", "json")
+        doc = json.loads(text) if rc in (0, 1) else {}
+        got = facade_fingerprints(doc) if doc else None
+        log(f"[facade] -c {name}: exit {rc}, {secs:.1f} s, issues {got} on {card}")
+        if rc != 0 or doc.get("partial") or got != pin[name]:
+            raise SystemExit(f"facade: -c {name} gave exit {rc}, {got}; want the JAX "
+                             f"facade's {pin[name]}; stderr {err[-2000:]!r}")
+    device_race.wait_idle()
+    out["launches"] = read_launches()
+    log(f"[facade] -c launches {out['launches']}")
+    check_path_launches("facade's -c runs", out["launches"])
+    # each milestone contract alone, one on the generic kernel and one on
+    # the fuse-only kernels (the flags reach SymExecWrapper's explorer
+    # through the flag bag): the same issues as the default's
+    for (name, code), flag in zip(MILESTONE, ("--no-specialize", "--no-blockjit")):
+        reset_launches()
+        with recorded_explorers() as explorers:
+            rc, text, err, secs = facade_cli("--bin-runtime", "-c", code, "-t", "2", "-o",
+                                             "json", flag)
+        device_race.wait_idle()
+        spent = read_launches()
+        doc = json.loads(text) if rc in (0, 1) else {}
+        got = facade_fingerprints(doc) if doc else None
+        want = {"MAIN": [list(ANALYZE_SWC[name]) + ["fallback"]]}
+        spec = spec_counters(explorers)
+        log(f"[facade] -c {name} {flag}: exit {rc}, {secs:.1f} s, issues {got}, "
+            f"{len(explorers)} explorer(s), specialization {spec}, launches {spent}")
+        off = (spec["specialized"] == 0 if flag == "--no-specialize"
+               else spec["blockjit_steps"] == 0 and spent["block_substep"] == 0)
+        if rc != 0 or doc.get("partial") or got != want or not explorers or not off:
+            raise SystemExit(f"facade: -c {name} {flag} gave exit {rc}, {got}, specialization "
+                             f"{spec}; want {want} with {flag} in force; stderr {err[-2000:]!r}")
+    with tempfile.TemporaryDirectory() as tmp:
+        codes = dict((MILESTONE + (CLEAN, ("hashkill", HASHKILL))))
+        files = []
+        for name in FACADE_CORPUS_NAMES:
+            (Path(tmp) / name).write_text(codes[name] + "\n")
+            files += ["-f", str(Path(tmp) / name)]
+        # the corpus: the overlapped prepass beside the walks
+        reset_launches()
+        with recorded_prepasses() as pres:
+            rc, text, err, secs = facade_cli("--bin-runtime", *files, "-t", "2", "-o", "json")
+        device_race.wait_idle()
+        out["launches_corpus"] = read_launches()
+        doc = json.loads(text) if rc in (0, 1) else {}
+        got = facade_fingerprints(doc) if doc else None
+        swcs = sorted({row[0] for rows in (got or {}).values() for row in rows})
+        log(f"[facade] the milestone corpus, CLEAN and HASHKILL as four -f files: exit {rc}, "
+            f"{secs:.1f} s, issues {got}, partial {doc.get('partial', False)}; "
+            f"{prepass_line(pres[0]) if pres else 'no prepass'}; launches "
+            f"{out['launches_corpus']}")
+        if rc != 0 or doc.get("partial") or got != pin["corpus"] or swcs != ["106", "110"] \
+                or len(pres) != 1 or not pres[0]["device"].startswith("cuda"):
+            raise SystemExit(f"facade: the corpus gave exit {rc}, {got}, prepasses "
+                             f"{[prepass_line(p) for p in pres]}; "
+                             f"want the JAX facade's {pin['corpus']}; stderr {err[-2000:]!r}")
+        check_path_launches("facade's corpus run", out["launches_corpus"])
+        out["corpus_s"], out["prepass"] = secs, {
+            k: v for k, v in pres[0].items() if k not in ("final", "t0")}
+        # the same corpus, the prepass owning nothing: the same issues
+        with recorded_prepasses() as pres:
+            rc, text, err, secs = facade_cli("--bin-runtime", *files, "-t", "2", "-o", "json",
+                                             "--device-ownership", "never")
+        device_race.wait_idle()
+        doc = json.loads(text) if rc in (0, 1) else {}
+        got = facade_fingerprints(doc) if doc else None
+        log(f"[facade] the four files under --device-ownership never: exit {rc}, {secs:.1f} s, "
+            f"issues {got}, prepass ownership {[p['ownership'] for p in pres]}")
+        if rc != 0 or doc.get("partial") or got != pin["corpus"] \
+                or [p["ownership"] for p in pres] != [False]:
+            raise SystemExit(f"facade: --device-ownership never gave exit {rc}, {got}; want the "
+                             f"JAX facade's {pin['corpus']}; stderr {err[-2000:]!r}")
+        # --deadline: expires during the first walk, the rest skipped
+        (Path(tmp) / "race_gate").write_text(RACE_GATE + "\n")
+        deadline_files = ["-f", str(Path(tmp) / "race_gate")] + files[:4]
+        argv = ("--bin-runtime", *deadline_files, "-t", "2", "-o", "json", "--deadline",
+                str(FACADE_DEADLINE_S))
+        rc, text, err, secs = facade_cli(*argv)
+        doc = json.loads(text)
+        status = [(Path(c["contract"]).name, c["complete"], c.get("skipped"))
+                  for c in doc.get("degradation", {}).get("contracts", [])]
+        log(f"[facade] --deadline {FACADE_DEADLINE_S}: exit {rc}, {secs:.1f} s, partial "
+            f"{doc.get('partial')}, contracts {status}")
+        if rc != 0 or not doc.get("partial") or not any(c[1] for c in status) \
+                or not any(c[2] for c in status):
+            raise SystemExit(f"facade: --deadline gave exit {rc}, {status}; want a partial "
+                             f"report with complete and skipped contracts")
+        rc, text, err, secs = facade_cli(*argv, "--on-timeout", "fail")
+        log(f"[facade] --deadline {FACADE_DEADLINE_S} --on-timeout fail: exit {rc}, "
+            f"{secs:.1f} s, {text.strip()[:200]!r}")
+        if rc != 1 or "Analysis deadline expired" not in text:
+            raise SystemExit(f"facade: --on-timeout fail gave exit {rc}, {text[-500:]!r}")
+    # a contract the device does not own, walked on the host
+    rc, text, err, secs = facade_cli("--bin-runtime", "-f", str(wave.CONTRACTS / CLI_UNOWNED),
+                                     "-t", "2", "-o", "json")
+    doc = json.loads(text)
+    got = facade_fingerprints(doc)
+    log(f"[facade] -f {CLI_UNOWNED} (not owned): exit {rc}, {secs:.1f} s, issues {got}")
+    if rc != 0 or doc.get("partial") or got != pin[CLI_UNOWNED]:
+        raise SystemExit(f"facade: -f {CLI_UNOWNED} gave exit {rc}, {got}; want the JAX "
+                         f"facade's {pin[CLI_UNOWNED]}")
+    # --device-solving never: the race gate's walk starts no race
+    reset_launches()
+    rc, text, err, secs = facade_cli(
+        "--bin-runtime", "-c", RACE_GATE, "-t", "1", "-o", "jsonv2", "--device-prepass", "never",
+        "--device-solving", "never", "--solver-timeout", str(RACE_GATE_TIMEOUT_MS))
+    device_race.wait_idle()
+    spent = read_launches()
+    (doc,) = json.loads(text)
+    losses = doc["meta"].get("solver_loss_reasons", {})
+    log(f"[facade] --device-solving never on the race gate: exit {rc}, {secs:.1f} s, issues "
+        f"{[i['swcID'] for i in doc['issues']]}, loss reasons {losses}, launches {spent}")
+    if rc != 0 or spent["portfolio_sls"] or spent["portfolio_eval"] \
+            or not losses.get("GATE_DISABLED") or losses.get("RACE_NOT_STARTED"):
+        raise SystemExit(f"facade: --device-solving never gave exit {rc}, launches {spent}, "
+                         f"losses {losses}")
+    # -j and -g
+    with tempfile.TemporaryDirectory() as tmp:
+        space, graph = Path(tmp) / "space.json", Path(tmp) / "graph.html"
+        rc_j, _, _, secs_j = facade_cli("--bin-runtime", "-c", MILESTONE[0][1], "-j", str(space))
+        rc_g, _, _, secs_g = facade_cli("--bin-runtime", "-c", MILESTONE[0][1], "-g", str(graph))
+        nodes_edges = ([len(v) for v in (lambda d: (d["nodes"], d["edges"]))(
+            json.loads(space.read_text()))] if space.exists() else None)
+        html = graph.read_text() if graph.exists() else ""
+    log(f"[facade] -j: exit {rc_j}, {secs_j:.1f} s, nodes and edges {nodes_edges} (JAX "
+        f"{pin['statespace']}); -g: exit {rc_g}, {secs_g:.1f} s, {len(html)} bytes of HTML")
+    if rc_j or rc_g or nodes_edges != pin["statespace"] or "vis.Network" not in html:
+        raise SystemExit(f"facade: -j/-g gave {rc_j}, {rc_g}, {nodes_edges}")
+    # the host-only commands against the JAX text
+    argv = pin["disassemble"]["argv"]
+    rc, text, _, _ = facade_cli(*argv[1:], command=argv[0])
+    rc_h, text_h, _, _ = facade_cli(pin["function_to_hash"]["signature"],
+                                    command="function-to-hash")
+    log(f"[facade] disassemble {argv[-1]}: exit {rc}, {len(text.splitlines())} lines, equal to "
+        f"the JAX text {text == pin['disassemble']['stdout']}; function-to-hash "
+        f"{text_h.strip()}")
+    if rc or rc_h or text != pin["disassemble"]["stdout"] \
+            or text_h != pin["function_to_hash"]["stdout"]:
+        raise SystemExit("facade: disassemble or function-to-hash differ from the JAX text")
+    # the static layer alone, no card: the JAX `myth lint` rows, from an
+    # empty summary cache as in a fresh process (the explorers of the
+    # earlier phases count their dropped seeds on the cached summaries)
+    from mythril_tpu_torch.analysis.static.summary import clear_static_cache
+
+    clear_static_cache()
     lint_pin = json.loads(LINT_PIN.read_text())
     files = [a for path in lint_pin["paths"] for a in ("-f", path)]
-    rc, out, secs = analyze_cli(*files, "-o", "json", command="lint")
+    rc, text, _, secs = facade_cli(*files, "-o", "json", command="lint")
     rows = [{k: v for k, v in row.items() if k not in ("contract", "wall_ms")}
-            for row in json.loads(out)]
+            for row in json.loads(text)]
     for row in rows:
         row["taint"].pop("wall_ms", None)
     differ = [path for path, got, want in zip(lint_pin["paths"], rows, lint_pin["rows"])
               if got != want]
-    log(f"[analyze cli] lint on the {len(rows)} vendored contracts: exit {rc}, {secs:.1f} s, "
+    log(f"[facade] lint on the {len(rows)} vendored contracts: exit {rc}, {secs:.1f} s, "
         f"{len(rows) - len(differ)} rows equal to the JAX pin, findings "
         f"{sum(len(r['findings']) for r in rows)}")
     if rc != 0 or len(rows) != len(lint_pin["rows"]) or differ:
         raise SystemExit(f"lint: exit {rc}, rows unlike the JAX pin: {differ}")
+    return out
+
+
+#: ab_overlap's visits: the facade's schedule (overlapped) against the
+#: prepass drained before the first walk, in turns
+AB_OVERLAP_VISITS = ("overlapped", "prepass-first", "prepass-first", "overlapped")
+
+
+def ab_overlap(card):
+    """`--ab-overlap`: the 13 vendored contracts through `analyze` (the
+    facade, its defaults, in this process), the overlapped corpus
+    prepass (the walks beside it, the JAX facade's schedule) against the
+    prepass run first (drained before the first walk, so that every walk
+    gets the final outcome and the whole card: the JAX `analyze_corpus`
+    order on a single core, analysis/corpus.py:1420-1470 of the JAX
+    package), in turns. Prints each visit's wall, the prepass's waves and
+    wall, the device-less walks and the walks' lock waits, and whether
+    the issue sets agree."""
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+    from mythril_tpu_torch.mythril import MythrilAnalyzer
+
+    files = [a for path in sorted(wave.CONTRACTS.glob("*.sol.o")) for a in ("-f", str(path))]
+    start = MythrilAnalyzer._corpus_prepass
+    drains = []
+
+    def prepass_first(self, transaction_count):
+        pre = start(self, transaction_count)
+        t0 = time.perf_counter()
+        pre.drain()
+        drains.append(time.perf_counter() - t0)
+        return pre
+
+    visits = []
+    for label in AB_OVERLAP_VISITS:
+        if label == "prepass-first":
+            MythrilAnalyzer._corpus_prepass = prepass_first
+        try:
+            with recorded_prepasses() as pres:
+                rc, text, err, secs = facade_cli("--bin-runtime", *files, "-t", "2", "-o",
+                                                 "json")
+        finally:
+            MythrilAnalyzer._corpus_prepass = start
+        doc = json.loads(text)
+        fps = facade_fingerprints(doc)
+        visits.append({"schedule": label, "wall_s": round(secs, 3), "exit": rc,
+                       "partial": bool(doc.get("partial")),
+                       "issues": sum(len(v) for v in fps.values()),
+                       "drain_s": round(drains[-1], 3) if label == "prepass-first" else None,
+                       "deviceless": pres[0].get("deviceless"),
+                       "walk_lock_wait_s": round(pres[0]["walk_lock_wait_s"], 3),
+                       "fingerprints": fps})
+        log(f"[ab-overlap] {label}: exit {rc}, {secs:.1f} s, {visits[-1]['issues']} issues; "
+            f"{prepass_line(pres[0])} on {card}")
+        if rc != 0:
+            raise SystemExit(f"ab-overlap: {label} exited {rc}: {err[-2000:]!r}")
+    same = all(v["fingerprints"] == visits[0]["fingerprints"] for v in visits)
+    for visit in visits[1:]:
+        for name in sorted(set(visit["fingerprints"]) | set(visits[0]["fingerprints"])):
+            a = {tuple(r) for r in visits[0]["fingerprints"].get(name, [])}
+            b = {tuple(r) for r in visit["fingerprints"].get(name, [])}
+            if a != b:
+                log(f"[ab-overlap] {visit['schedule']} visit against the first, {name}: "
+                    f"only in the first {sorted(a - b)}, only in this one {sorted(b - a)}")
+    walls = {label: [v["wall_s"] for v in visits if v["schedule"] == label]
+             for label in ("overlapped", "prepass-first")}
+    log(f"[ab-overlap] walls {walls}, issue sets equal across visits {same}")
+    print(json.dumps({"ab_overlap": {"card": card, "walls_s": walls, "issue_sets_equal": same,
+                                     "visits": [{k: v for k, v in visit.items()
+                                                 if k != "fingerprints"}
+                                                for visit in visits]}}))
 
 
 def analyze_pinned_ladder(card):
@@ -3339,6 +3635,22 @@ def analyze_pinned_ladder(card):
             raise SystemExit(f"analyze (a): the vendored corpus never launched {name}")
 
 
+def corpus_report(contracts, results):
+    """(Report, errors): the JAX package's Report over `analyze_corpus`'s
+    results for `contracts` (EVMContracts in the same order), with, in
+    `errors`, one line for each contract that was not analyzed."""
+    from mythril_tpu_torch.analysis.report import Report
+
+    errors = [f"{r['name']}: {r.get('error') or 'skipped: ' + str(r.get('skipped'))}"
+              for r in results if not r["complete"]]
+    report = Report(contracts=contracts, exceptions=errors)
+    for contract, result in zip(contracts, results):
+        for issue in result["issue_objects"]:
+            issue.add_code_info(contract)
+            report.append_issue(issue)
+    return report, errors
+
+
 def analyze_default(card):
     """(b): the 13 vendored contracts through analyze_corpus on the card
     with the default funnel (SLS, cube fan, enumeration), the ladder at
@@ -3354,7 +3666,6 @@ def analyze_default(card):
     apart from the gate's (`launches_walk_gate`)."""
     from mythril_tpu_torch.analysis import corpus
     from mythril_tpu_torch.ethereum.evmcontract import EVMContract
-    from mythril_tpu_torch.interfaces.cli import build_report
     from mythril_tpu_torch.laser.smt.solver.solver_statistics import SolverStatistics
     from mythril_tpu_torch.observe import querylog
     from mythril_tpu_torch.support import resilience
@@ -3427,7 +3738,7 @@ def analyze_default(card):
         f"launches in its walk {spent_gate['launches']} on {card}")
     t1 = time.perf_counter()
     contracts = [EVMContract(code=code, name=name) for code, _, name in rows]
-    report, errors = build_report(contracts, results, {})
+    report, errors = corpus_report(contracts, results)
     rendered = {form: len(getattr(report, form)()) for form in
                 ("as_text", "as_markdown", "as_json", "as_swc_standard_format")}
     render_s = time.perf_counter() - t1
@@ -3560,7 +3871,7 @@ def phase_analyze(card):
     the wrapper's own prepass."""
     analyze = analyze_default(card)
     analyze_pinned_ladder(card)
-    analyze_cli_checks(card)
+    facade_checks(card)
     wrapper_prepass(card)
     return analyze
 
@@ -4561,6 +4872,16 @@ def main() -> int:
     if args == ["--serve"]:
         print(json.dumps(phase_serve(card)["serve"]))
         return 0
+    if args == ["--facade"]:
+        t0 = time.perf_counter()
+        facade = facade_checks(card)
+        wrapper_prepass(card)
+        log(f"[facade] {time.perf_counter() - t0:.1f} s in all")
+        print(json.dumps({k: v for k, v in facade.items()}))
+        return 0
+    if args == ["--ab-overlap"]:
+        ab_overlap(card)
+        return 0
     walls = {}
 
     def phase(name, fn, *a):
@@ -4582,7 +4903,7 @@ def main() -> int:
     explore = phase("explorer", phase_explore, card)
     analyze = phase("analyze (b)", analyze_default, card)
     phase("analyze (a)", analyze_pinned_ladder, card)
-    phase("analyze cli", analyze_cli_checks, card)
+    facade = phase("analyze cli", facade_checks, card)
     phase("analyze wrapper", wrapper_prepass, card)
     serve = phase("serve", phase_serve, card)
     kern.update(phase("portfolio kernels", phase_portfolio_kernels, card, flip["programs"],
@@ -4625,11 +4946,15 @@ def main() -> int:
         "launches_walk_gate": analyze["launches_walk_gate"].get(name, 0),
         "launches_solver": solver["launches"][name],
         "launches_serve": serve["launches"][name],
+        "launches_facade": facade["launches"][name],
+        "launches_facade_corpus": facade["launches_corpus"][name],
         **({"launches_many": main_path["launches"]["slot_write_many"],
             "launches_many_symbolic_wave": sym_wave["launches"]["slot_write_many"],
             "launches_many_explore": explore["launches"]["slot_write_many"],
             "launches_many_analyze": analyze["launches"]["slot_write_many"],
             "launches_many_serve": serve["launches"]["slot_write_many"],
+            "launches_many_facade": facade["launches"]["slot_write_many"],
+            "launches_many_facade_corpus": facade["launches_corpus"]["slot_write_many"],
             "host_us_per_call_many": host_us["slot_write_many, 8 banks"]}
            if name == "slot_write" else {}),
         "mismatches": k.pop("mismatches"),

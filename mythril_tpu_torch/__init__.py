@@ -17,13 +17,17 @@ caller passes `device="cpu"`:
 - `laser.batch.explore.DeviceCorpusExplorer` / `DeviceSymbolicExplorer`
   (the device explorer: waves, flips, carries across attacker
   transactions, per-contract outcomes) and `replay_wave`;
-- `analysis.corpus.analyze_corpus` and `python -m mythril_tpu_torch
-  analyze` (the device prepass, the ownership gate, and the host walk,
-  `analysis.symbolic.SymExecWrapper` + `analysis.security.fire_lasers`,
-  of every contract the device does not own, its solver queries racing
-  the card), with the static pass on by default (`analysis.static`:
-  the static-answer triage, the explorer's prune feed, the walk's
-  module screen);
+- `analysis.corpus.analyze_corpus` (the device prepass, the ownership
+  gate, and the host walk, `analysis.symbolic.SymExecWrapper` +
+  `analysis.security.fire_lasers`, of every contract the device does not
+  own, its solver queries racing the card), with the static pass on by
+  default (`analysis.static`: the static-answer triage, the explorer's
+  prune feed, the walk's module screen);
+- `mythril.MythrilAnalyzer.fire_lasers` over `mythril.MythrilDisassembler`
+  and `python -m mythril_tpu_torch analyze` (the analyzer facade, as the
+  JAX `myth analyze`: one contract's own device prepass then its walk,
+  or a corpus's overlapped prepass beside the walk of every contract),
+  `disassemble`, `list-detectors`, `function-to-hash` and `version`;
 - `python -m mythril_tpu_torch lint` (`analysis.static.summary_for`
   alone, host only);
 - `ops.keccak.keccak256`.

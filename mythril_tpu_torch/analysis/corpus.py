@@ -20,10 +20,17 @@ Where the port differs, and how it says so:
   contract is `complete: False`, as in the JAX package;
 - the multi-chip scheduler (`mesh_groups > 1`) raises, as the explorer's
   other unported options do;
-- the pooled walk (`processes > 1`) raises; the overlapped prepass (the
-  walk beside the exploration), the verdict store (and with it the
-  selector masks), the corpus link pass and the routing triage are not
-  ported and have no switch here;
+- the pooled walk (`processes > 1`) raises; the verdict store (and with
+  it the selector masks), the corpus link pass and the routing triage
+  are not ported and have no switch here;
+- `OverlappedPrepass`, the corpus prepass on a thread of its own beside
+  the analyzer facade's walks (mythril/mythril_analyzer.py), is the JAX
+  one, with two departures: an exception in the prepass thread is kept
+  and re-raised (by `outcome_for`, `drain` and `finish`, after the
+  PREPASS_FAILED record), where the JAX `finish` returns no outcomes and
+  the walks go on without the card; and a drain or finish that times out
+  on a hung device call is recorded in the DegradationLog
+  (`prepass-drain-timed-out`), not only logged;
 - the static-answer triage (`_static_triage`, on unless
   `args.static_answer` or `args.static_prune` is off) is the JAX one,
   but a static pass that raises on a contract is recorded in the
@@ -92,12 +99,44 @@ def _runnable_rows(
     return rows
 
 
+def corpus_shard(items, shard_index: int, shard_count: int, identity=None):
+    """Deterministic multi-host partition of a corpus (the JAX
+    package's `corpus_shard`): contracts are embarrassingly parallel
+    across hosts, so scale-out is a stable partition plus a report
+    merge. Assignment hashes each item's CONTENT (name + runtime code),
+    not its position, so every host computes the same partition however
+    its filesystem enumerates the inputs. `identity` maps an item to its
+    identity string; the default fits the analyze_corpus row shape
+    (code, creation, name)."""
+    import hashlib
+
+    if shard_count < 1:
+        raise ValueError(f"shard count must be >= 1, got {shard_count}")
+    if not 0 <= shard_index < shard_count:
+        raise ValueError(
+            f"shard index {shard_index} outside 0..{shard_count - 1}"
+        )
+    if shard_count == 1:
+        return list(items)
+    if identity is None:
+        identity = lambda row: f"{row[2]}:{row[0]}"  # noqa: E731
+    out = []
+    for item in items:
+        digest = hashlib.sha256(identity(item).encode()).digest()
+        if int.from_bytes(digest[:8], "big") % shard_count == shard_index:
+            out.append(item)
+    return out
+
+
 def corpus_device_prepass(
     contracts: List[Tuple[str, str, str]],
     budget_s: Optional[float] = None,
     address: int = DEFAULT_ADDRESS,
     transaction_count: int = 1,
+    host_lock=None,
     stop_event=None,
+    publish=None,
+    lock_wanted=None,
     execution_timeout: Optional[float] = None,
     deadline=None,
     mesh_groups: Optional[int] = None,
@@ -109,6 +148,9 @@ def corpus_device_prepass(
     (None: the card); returns {contract_index: single-contract prepass
     outcome} (indexed, not named: corpus rows may share names). A
     failure of the exploration raises, after a PREPASS_FAILED record.
+    `host_lock`, `publish` and `lock_wanted` are the overlapped mode's
+    (`OverlappedPrepass`): `publish(contract_index, outcome)` receives
+    every track's outcome after each wave.
 
     The geometry is the JAX package's: calldata the longest
     `required_calldata_len`, ROOMY_CAPS and 32 lanes a contract below
@@ -140,6 +182,11 @@ def corpus_device_prepass(
     mem_cap, storage_cap = (
         LEAN_CAPS if len(runnable) >= OVERLAP_MIN_CORPUS else ROOMY_CAPS
     )
+    translate = (
+        None
+        if publish is None
+        else (lambda ti, outcome: publish(runnable[ti][0], outcome))
+    )
     try:
         explorer = DeviceCorpusExplorer(
             [code for _, code in runnable],
@@ -152,10 +199,14 @@ def corpus_device_prepass(
             budget_s=budget_s,
             address=address,
             transaction_count=transaction_count,
+            host_lock=host_lock,
             stop_event=stop_event,
+            publish=translate,
             deadline=deadline,
             device=device,
         )
+        if lock_wanted is not None:
+            explorer.lock_wanted = lock_wanted
         with trace("corpus.prepass", contracts=len(runnable)):
             result = explorer.run()
     except Exception:
@@ -181,6 +232,200 @@ def corpus_device_prepass(
         outcome["stats"] = dict(stats, scope="corpus")
         outcomes[idx] = outcome
     return outcomes
+
+
+#: how long `drain` waits for the prepass thread, and `finish` for it to
+#: stop at its next wave boundary, before a hung device call is given up
+DRAIN_TIMEOUT_S = 120.0
+FINISH_TIMEOUT_S = 90.0
+
+
+class OverlappedPrepass:
+    """Own the striped device prepass thread beside a sequence of host
+    analyses in THIS process (the JAX package's `OverlappedPrepass`).
+
+    The prepass explores the whole corpus on `device` (None: the card)
+    while the caller analyzes contracts one by one; both sides serialize
+    host symbolic state on HOST_SYMBOLIC_LOCK (support/host_lock.py).
+    Per-contract outcomes are published after every wave, so analyses
+    that start mid-prepass still get witness/coverage injection, and
+    `finish()` returns the final outcomes for a post-merge.
+
+    Usage:
+        pre = OverlappedPrepass(contracts, address, transaction_count)
+        for i, c in enumerate(contracts):
+            outcome, device_ok = pre.outcome_for(i)
+            with pre.lock:
+                ...analyze c with prepass_outcome=outcome, device off
+                   unless device_ok...
+            pre.yield_lock()
+        final = pre.finish()
+
+    Unlike the JAX one, a prepass that raised does not leave the walks
+    to go on without the card: `outcome_for`, `drain` and `finish`
+    re-raise the thread's exception once it is known (the exploration's
+    failure is recorded PREPASS_FAILED by `corpus_device_prepass`), and a
+    drain or finish that gives up on a hung thread is recorded in the
+    DegradationLog (`prepass-drain-timed-out`). The JAX budget and mesh
+    arguments are left out: the facade passes neither, and the mesh is
+    not ported."""
+
+    def __init__(
+        self,
+        contracts: List[Tuple[str, str, str]],
+        address: int,
+        transaction_count: int,
+        execution_timeout: Optional[float] = None,
+        ownership: bool = False,
+        deadline=None,
+        device=None,
+    ) -> None:
+        import threading
+
+        from mythril_tpu_torch.support.host_lock import HOST_SYMBOLIC_LOCK
+
+        self.lock = HOST_SYMBOLIC_LOCK
+        self._final: Dict[int, Dict] = {}
+        self._published: Dict[int, Dict] = {}
+        self._stop = threading.Event()
+        self._lock_wanted = threading.Event()
+        self._error: Optional[BaseException] = None
+        self._deviceless = 0
+        self._finished = False
+        self._drain_abandoned = False
+
+        def _work():
+            try:
+                self._final.update(
+                    corpus_device_prepass(
+                        contracts,
+                        address=address,
+                        transaction_count=transaction_count,
+                        host_lock=self.lock,
+                        stop_event=self._stop,
+                        publish=self._published.__setitem__,
+                        lock_wanted=self._lock_wanted,
+                        execution_timeout=execution_timeout,
+                        ownership=ownership,
+                        deadline=deadline,
+                        device=device,
+                    )
+                )
+            except BaseException as why:  # kept for the owner to raise
+                self._error = why
+
+        self._thread = threading.Thread(
+            target=_work, name="corpus-prepass", daemon=True
+        )
+        self._thread.start()
+
+    @property
+    def drain_abandoned(self) -> bool:
+        """True once a drain timed out on a hung device call — no
+        further outcomes will ever be published."""
+        return self._drain_abandoned
+
+    @property
+    def deviceless(self) -> int:
+        """How many outcomes were handed out with the device off (the
+        analyses that ran while the prepass owned the card)."""
+        return self._deviceless
+
+    def _done(self) -> bool:
+        if self._thread is not None and not self._thread.is_alive():
+            self._thread.join()
+            self._thread = None
+        return self._thread is None
+
+    def _raise_failure(self) -> None:
+        """Re-raise the prepass thread's exception, once it ended."""
+        if self._error is not None and self._done():
+            raise self._error
+
+    def _abandon(self, what: str, waited_s: float) -> None:
+        from mythril_tpu_torch.support.resilience import (
+            DegradationLog,
+            DegradationReason,
+        )
+
+        self._drain_abandoned = True
+        DegradationLog().record(
+            DegradationReason.PREPASS_DRAIN_TIMED_OUT,
+            site="corpus-prepass",
+            detail=f"{what} gave up on the prepass thread after {waited_s:.0f} s; "
+            "its banked witnesses are lost",
+        )
+        log.warning(
+            "corpus device prepass %s timed out after %.0f s", what, waited_s
+        )
+
+    def drain(self) -> None:
+        """Block until the prepass finishes its remaining active
+        budget, without stopping it early. While the caller waits here
+        the lock stays free, so the drain runs at full speed. The join is
+        bounded AND paid once: a device call hung on a faulted card must
+        cost the corpus DRAIN_TIMEOUT_S in total, not per remaining
+        contract — after a timed-out drain every later call is a no-op."""
+        if self._drain_abandoned:
+            return
+        if self._thread is not None:
+            self._thread.join(timeout=DRAIN_TIMEOUT_S)
+            if not self._done():
+                self._abandon("drain", DRAIN_TIMEOUT_S)
+                return
+        self._raise_failure()
+
+    def outcome_for(self, i: int):
+        """(outcome to inject for contract i, device allowed).
+
+        While the prepass runs, analyses get the latest PUBLISHED
+        partial outcome with the device off — the card belongs to the
+        prepass thread, and an injected outcome bypasses the
+        device_prepass mode check anyway. Once it's done, the device
+        comes back for everyone: covered contracts get the final
+        outcome (which skips their own per-contract prepass), missed
+        ones take the normal per-contract device path. A prepass that
+        raised raises here."""
+        if self._done():
+            self._raise_failure()
+            return self._final.get(i), True
+        self._deviceless += 1
+        return self._published.get(i), False
+
+    def yield_lock(self) -> None:
+        """Hand the lock to the prepass thread between analyses:
+        CPython locks are unfair and a tight loop would reacquire
+        within microseconds, rationing the prepass to one reseed per
+        contract (lock convoy). Only yields when a flip burst is
+        actually waiting."""
+        if (
+            self._thread is not None
+            and self._thread.is_alive()
+            and self._lock_wanted.is_set()
+        ):
+            time.sleep(0.05)
+
+    def finish(self) -> Dict[int, Dict]:
+        """Stop the exploration at its next wave boundary and return
+        the final per-contract outcomes; re-raise the thread's exception
+        if the prepass failed. Idempotent — callers invoke it from
+        finally blocks so an exception escaping the analysis loop cannot
+        orphan the thread."""
+        if not self._finished:
+            self._finished = True
+            if self._thread is not None:
+                self._stop.set()
+                # stop is honored between waves; a thread a drain
+                # already waited on is known hung, so it gets no more
+                grace = 0.1 if self._drain_abandoned else FINISH_TIMEOUT_S
+                self._thread.join(timeout=grace)
+                if not self._done():
+                    if not self._drain_abandoned:
+                        self._abandon("finish", grace)
+                    self._thread = None  # left to run out as a daemon
+                    return self._final
+        self._raise_failure()
+        return self._final
 
 
 def _ownership_enabled() -> bool:
@@ -574,3 +819,5 @@ def _merge_prepass_witnesses(
             result["issues"].extend(issue.as_dict for issue in extra)
             result["issue_objects"].extend(extra)
             outcome["stats"]["witness_issues"] = len(extra)
+
+

@@ -65,12 +65,6 @@ STRATEGIES = {
 
 CALL_OPS = ("CALL", "CALLCODE", "DELEGATECALL", "STATICCALL")
 
-#: the in-line device prepass of one contract (no injected outcome): its
-#: lanes a wave and its wall budget in seconds (the JAX package's
-#: --device-prepass-lanes and --device-prepass-budget defaults)
-PREPASS_LANES = 128
-PREPASS_BUDGET_S = 12.0
-
 
 class DeviceExplorationInfo(ExecutionInfo):
     """Device-prepass counters, surfaced in jsonv2 execution info."""
@@ -295,7 +289,7 @@ class SymExecWrapper:
             # when the budget can't fit another wave. Tiny analysis
             # timeouts skip the prepass outright: even a warm wave would
             # eat a meaningful slice of them.
-            budget = PREPASS_BUDGET_S
+            budget = float(getattr(args, "device_prepass_budget", 12.0))
             if execution_timeout:
                 if execution_timeout < 6:
                     return None
@@ -308,7 +302,7 @@ class SymExecWrapper:
             outcome = DeviceSymbolicExplorer(
                 runtime,
                 calldata_len=required_calldata_len(runtime),
-                lanes=PREPASS_LANES,
+                lanes=int(getattr(args, "device_prepass_lanes", 128)),
                 waves=8,
                 steps_per_wave=512,
                 budget_s=budget,

@@ -59,6 +59,13 @@ counter hash here, threefry there). What changes:
   back to the generic kernel as in the JAX package, but is recorded
   (`specialize-failed`, counted in `specialize_failed`), not only
   logged;
+- the overlapped mode of the analyzer facade's corpus prepass
+  (analysis/corpus.py `OverlappedPrepass`) is the JAX one: `host_lock`
+  guards the flip bursts' host symbolic work (term decode, lowering, the
+  ladder) while the card's batched solve runs lock-free, `lock_wanted`
+  tells the owner a burst waits, `publish` hands out each track's
+  outcome after every wave, and with a lock the budget bills active time
+  (waves and flip solving), not the wall spent waiting on it;
 - not ported, and refused rather than skipped: the multi-device mesh
   (`n_devices > 1`, `devices` of more than one card). Also left out: the metrics
   registry (`publish_explore_stats`, `solverstats.record_query`), the
@@ -72,6 +79,7 @@ import hashlib
 import json
 import logging
 import random
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
@@ -966,7 +974,9 @@ class DeviceCorpusExplorer:
         n_devices: Optional[int] = None,
         transaction_count: int = 1,
         empty_world: bool = True,
+        host_lock=None,
         stop_event=None,
+        publish=None,
         mem_cap: int = 16384,
         storage_cap: int = 128,
         deadline=None,
@@ -1015,7 +1025,14 @@ class DeviceCorpusExplorer:
         # loading): device lanes then hand CALLs to the host instead
         # of treating them as transfers
         self.empty_world = empty_world
-        # `stop_event` lets the owner end the exploration
+        # Overlapped mode (analysis/corpus.py): waves run in a prepass
+        # thread while the main thread analyzes; `host_lock` guards the
+        # process-global symbolic state (support/host_lock.py) around
+        # flip decode+solve bursts, and the budget switches to ACTIVE
+        # time (waves + flip solving) so wall spent blocked on the lock
+        # doesn't count against the prepass. `stop_event` lets the
+        # owner end the exploration when its own work is done.
+        self.host_lock = host_lock
         self.stop_event = stop_event
         #: resilience supervision (support/resilience.py): an expired
         #: `deadline` — or a delivered SIGINT/SIGTERM — reads as a stop
@@ -1051,6 +1068,17 @@ class DeviceCorpusExplorer:
         self._stream = None
         self._wave_serial = 0
         self._halt_reason = None
+        #: set while this explorer wants/holds the host lock — the
+        #: overlapped owner only needs to yield between analyses when
+        #: a flip burst is actually waiting, not once per contract
+        self.lock_wanted = threading.Event()
+        # `publish(track_index, outcome_so_far)` after every wave: in
+        # overlapped mode the owner consumes partial outcomes for
+        # contracts it analyzes before the exploration completes —
+        # wave-1 triggers/coverage already pre-empt most of what the
+        # final outcome would (dict writes are GIL-atomic; the value is
+        # freshly built, never mutated after publication)
+        self.publish = publish
         #: per reseed: flip candidates, opaque targets, queries lowered,
         #: device-solve ms, verdicts by mode, witnesses, invalid
         #: witnesses, survivors the host ladder's cap deferred
@@ -2210,7 +2238,10 @@ class DeviceCorpusExplorer:
 
         Candidates are collected across the WHOLE corpus first and
         solved as one batch, so hard queries share a single device
-        dispatch instead of paying per-query latency."""
+        dispatch instead of paying per-query latency. Only the
+        host-symbolic stages (term decode + lowering, and the ladder's
+        CDCL) hold the host lock; the device dispatch and the track
+        bookkeeping are lock-free."""
         self._reseed_record = record = {
             "wave": self._wave_serial, "candidates": 0, "steering": 0,
             "opaque": 0, "lowered": 0, "solve_ms": 0.0, "verdicts": {},
@@ -2219,22 +2250,35 @@ class DeviceCorpusExplorer:
         deferred0 = self.ladder_deferred
         props = getattr(self, "_pending_props", [])
         self._pending_props = []
-        per_contract = [
-            self._collect_flip_candidates(view, ci)
-            for ci in range(len(self.tracks))
-        ]
-        flat = [c for cands in per_contract for c in cands]
-        # property-steering queries ride the same funnel batch as the
-        # flips (same cost model, same device dispatch)
-        batch = [cond for _, cond, _ in flat] + [p[2] for p in props]
-        solved: List[Optional[Dict[str, int]]] = [None] * len(batch)
-        # the device-first funnel: the WHOLE frontier lowers to one
-        # batched device dispatch, whose cost does not grow with the
-        # query count; the escalation ladder sees only its unknown
-        # survivors (and the queries that never lowered)
-        lowered_batch, kept = self._lower_flips(batch)
+        guard = self.host_lock if self.host_lock is not None else nullcontext()
+        self.lock_wanted.set()
+        try:
+            with guard:
+                per_contract = [
+                    self._collect_flip_candidates(view, ci)
+                    for ci in range(len(self.tracks))
+                ]
+                flat = [c for cands in per_contract for c in cands]
+                # property-steering queries ride the same funnel batch as
+                # the flips (same cost model, same device dispatch)
+                batch = [cond for _, cond, _ in flat] + [p[2] for p in props]
+                solved: List[Optional[Dict[str, int]]] = [None] * len(batch)
+                # the device-first funnel: the WHOLE frontier lowers
+                # under the lock to one batched device dispatch, whose
+                # cost does not grow with the query count and which
+                # fires lock-free
+                lowered_batch, kept = self._lower_flips(batch)
+        finally:
+            self.lock_wanted.clear()
         answered, device_unsat = self._device_flips(solved, lowered_batch, kept)
-        capped, _survivors = self._sprint_flips(batch, solved, skip=answered)
+        # the escalation ladder: host CDCL only sees the device's unknown
+        # survivors (and the queries that never lowered)
+        self.lock_wanted.set()
+        try:
+            with guard:
+                capped, _survivors = self._sprint_flips(batch, solved, skip=answered)
+        finally:
+            self.lock_wanted.clear()
         # a capped query that the device also failed to answer (or that
         # never compiled) had no genuine attempt; sprint-attempted and
         # device-answered ones (including device-owned unsats) are
@@ -2420,6 +2464,8 @@ class DeviceCorpusExplorer:
             for t in self.tracks
             if not t.parked and t.finalize_if_complete()
         ]
+        if newly_parked:
+            self._publish_partial()
         return newly_parked, all(
             t.parked or t.idle for t in self.tracks
         )
@@ -2447,6 +2493,7 @@ class DeviceCorpusExplorer:
                 # blocks); the budget governs the steady-state loop
                 # after it
                 self._t0 = time.perf_counter()
+            self._publish_partial()
             if wave_no == self.waves - 1:
                 # the wave cap ends the phase with the final wave's
                 # results never reseeded: `exhausted` is stale for any
@@ -2463,7 +2510,9 @@ class DeviceCorpusExplorer:
             fresh, n_flips = self._reseed(view)
             if txn == self.transaction_count - 1:
                 # early per-contract finality: a contract that just
-                # closed all its ownership gates freezes NOW
+                # closed all its ownership gates freezes NOW, and the
+                # publisher announces it so the analysis loop can skip
+                # its host walk without waiting for the corpus run
                 _, all_done = self._finalize_tracks()
                 if all_done:
                     return True  # everything owned or inert: run over
@@ -2528,6 +2577,7 @@ class DeviceCorpusExplorer:
                 harvested += 1
                 if txn == 0 and harvested == 1:
                     self._t0 = time.perf_counter()
+                self._publish_partial()
                 covered_now = sum(len(t.covered) for t in self.tracks)
 
                 if not stop_dispatch and self._stop_requested():
@@ -2576,14 +2626,34 @@ class DeviceCorpusExplorer:
             self._finalize_tracks()
         return finished
 
+    def _publish_partial(self) -> None:
+        if self.publish is None:
+            return
+        for ci, track in enumerate(self.tracks):
+            if track.parked:
+                # the frozen FINAL outcome — final_for_contract lets
+                # the ownership consumer act on it mid-run
+                outcome = dict(track._final_outcome)
+            else:
+                outcome = track.outcome()
+            # per-track copy: consumers annotate their stats dict
+            # (witness_issues), so sharing one object across contracts
+            # would let them clobber each other
+            outcome["stats"] = dict(self.stats.as_dict(), partial=True)
+            self.publish(ci, outcome)
+
     def _budget_spent(self) -> bool:
         return self._allowance_spent(self._phase_allowance)
 
     def _hard_stop(self) -> bool:
         """The +45s slack line past which even a phase's guaranteed
-        opening wave is forfeit."""
+        opening wave is forfeit (billed in the mode's own currency:
+        active time when overlapped, wall otherwise)."""
         if self.budget_s is None:
             return False
+        if self.host_lock is not None:
+            active = self.stats.wave_exec_s + self.stats.flip_solve_s
+            return active > self.budget_s + 45
         return time.perf_counter() - self._t_start > self.budget_s + 45
 
     def _allowance_spent(self, allowance: Optional[float]) -> bool:
@@ -2599,6 +2669,16 @@ class DeviceCorpusExplorer:
         predicted = (
             min(self._wave_times[1:]) if len(self._wave_times) > 1 else 0.0
         )
+        if self.host_lock is not None:
+            # overlapped: bill only ACTIVE time — wall spent waiting on
+            # the lock is the main thread's analysis time, not ours
+            active = self.stats.wave_exec_s + self.stats.flip_solve_s
+            if active > budget_s + 45:
+                return True
+            steady = active - (
+                self._wave_times[0] if self._wave_times else 0.0
+            )
+            return steady + predicted > budget_s
         # hard stop: the whole prepass — warm-up included — may cost at
         # most one warm-up allowance (45s, the JAX package's compile
         # allowance) on top of the steady-state budget; the first wave

@@ -33,9 +33,12 @@ witness arrived after the host answered) waits for the metrics registry
 (ROADMAP Queue 1 item 9).
 
 The race's caller is the host walk (analysis/symbolic.py): its
-`check_terms` run after the corpus prepass has released `DEVICE_BUSY`,
-on the walk's device. The explorer's escalation ladder solves while its
-exploration holds `DEVICE_BUSY`, so it starts none.
+`check_terms` run on the walk's device wherever no exploration holds
+`DEVICE_BUSY`, and `args.device_solving` "never" starts none
+(solver.py:device_solving_enabled; the analyzer facade sets it for a
+walk beside its overlapped corpus prepass). The explorer's escalation
+ladder solves while its exploration holds `DEVICE_BUSY`, so it starts
+none.
 """
 
 from __future__ import annotations

@@ -6,10 +6,11 @@ MYTHRIL_RACE_GRACE_MS override); the device race and the
 --parallel-solving escape run the port's portfolio on the `device` the
 caller names (`Solver`, `Optimize`, `check_terms` and `get_model` take
 it: None means the card and raises where there is none, "cpu" runs the
-plain portfolio); the race has no off switch (the JAX package's
-`args.device_solving`): it starts wherever no exploration holds the
-card (`device_race.race_available`), which the host walk's queries
-reach (device_race.py); and the race's errors are counted, never
+plain portfolio); `args.device_solving` "auto" races wherever no
+exploration holds the card (`device_race.race_available`), which the
+host walk's queries reach (device_race.py), since the port always has
+the device it was given ("auto" in the JAX package races only on an
+accelerator backend); and the race's errors are counted, never
 swallowed (device_race.py).
 The statistics are plain in-process counters (solver_statistics.py,
 observe/solverstats.py).
@@ -394,6 +395,16 @@ def _race_cone(
     return [lowered[i] for i in sorted(chosen)]
 
 
+def device_solving_enabled() -> bool:
+    """The card's portfolio race beside the marathon: on unless
+    `args.device_solving` is "never" (the JAX package's
+    `device_solving_enabled`; "auto" means on, as the port always has
+    the device it was given)."""
+    from mythril_tpu_torch.support.support_args import args as _args
+
+    return getattr(_args, "device_solving", "auto") != "never"
+
+
 def _race_grace_s() -> float:
     """The funnel's escalation threshold: how long the host HOLDS a
     verdict it just found while a device race is still in flight,
@@ -585,11 +596,12 @@ def _check_terms_impl(
     deterministic = _glob_args.deterministic_solving
     # default loss classification for sprint-answered verdicts (the
     # easy majority): the device never got a chance — because the gate
-    # is administratively closed (deterministic mode forgoes the race
-    # entirely), or because the sprint was simply first
+    # is administratively closed (--device-solving never, or
+    # deterministic mode forgoes the race entirely), or because the
+    # sprint was simply first
     _set_loss(
         querylog.LOSS_SPRINT_PREEMPTED
-        if not deterministic
+        if device_solving_enabled() and not deterministic
         else querylog.LOSS_GATE_DISABLED
     )
     remaining = max(200, timeout_ms - int((time.monotonic() - t_total) * 1000))
@@ -650,7 +662,9 @@ def _check_terms_impl(
             from mythril_tpu_torch.laser.smt.solver import device_race
 
             race = None
-            if len(lowered) < 2:
+            if not device_solving_enabled():
+                _set_loss(querylog.LOSS_GATE_DISABLED)
+            elif len(lowered) < 2:
                 # below the race's minimum useful size: the cone would
                 # be the whole (tiny) query and the dispatch chain
                 # costs more than the marathon

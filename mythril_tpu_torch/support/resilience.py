@@ -90,6 +90,11 @@ class DegradationReason:
     INTERRUPTED = "interrupted"
     CONTRACT_SKIPPED = "contract-skipped"
     PREPASS_FAILED = "prepass-failed"
+    #: the analyzer facade's overlapped corpus prepass (analysis/corpus.py
+    #: OverlappedPrepass) did not end within its drain or finish grace,
+    #: a device call hung: its banked witnesses are lost (port-only: the
+    #: JAX package only logs it)
+    PREPASS_DRAIN_TIMED_OUT = "prepass-drain-timed-out"
     #: the static pass (analysis/static) raised on a contract: it
     #: explores unpruned, every detection module mounts and the triage
     #: takes the full path, so the report is the unpruned analysis's

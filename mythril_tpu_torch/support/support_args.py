@@ -30,6 +30,16 @@ class Args(object, metaclass=Singleton):
         # injected: "auto" runs it on the wrapper's device, "never"
         # walks without it
         self.device_prepass = "auto"
+        # its lanes a wave and its wall budget in seconds (CLI
+        # --device-prepass-budget)
+        self.device_prepass_lanes = 128
+        self.device_prepass_budget = 12.0
+        # the card's portfolio race beside the host CDCL marathon
+        # (laser/smt/solver/solver.py, CLI --device-solving): "auto" and
+        # "always" race wherever no exploration holds the card, "never"
+        # starts none. The analyzer facade sets "never" for a walk while
+        # its overlapped corpus prepass owns the card.
+        self.device_solving = "auto"
         # --parallel-solving: a query the CDCL leaves unknown gets one
         # portfolio search where the analysis runs (one card: several
         # are ROADMAP Queue 1 item 8)
@@ -56,8 +66,8 @@ class Args(object, metaclass=Singleton):
         # a contract whose semantic screen proves NO detection module
         # can fire is answered with an empty issue set at corpus
         # dispatch: no device, no walk. Rides the static_prune flag
-        # (off under --no-static-prune) plus this knob (CLI
-        # --no-static-answer).
+        # (off under --no-static-prune) plus this knob (`serve
+        # --no-static-answer`; analysis/corpus.py:analyze_corpus reads it).
         self.static_answer = True
         # Kernel specialization (laser/batch/specialize.py, CLI
         # --no-specialize): per-contract phase pruning plus superblock
@@ -82,6 +92,12 @@ class Args(object, metaclass=Singleton):
         # --no-breakers`): the explorer's device-solve tier and the
         # analysis service's device and kernel tiers. On by default.
         self.breakers = True
+        # The run's wall-clock budget and what its expiry produces (CLI
+        # --deadline, --on-timeout), mirrored here by the analyzer facade
+        # for observability: the deep layers read the deadline itself
+        # from support/resilience.py:run_deadline().
+        self.run_deadline_s = None
+        self.on_timeout = "partial"
 
 
 args = Args()

@@ -10,7 +10,10 @@ its resilience, checkpoint, span and capture modules, on its default
 specialized kernel), a blockjit run of a lowered block (specialize.py,
 blockjit.py and the substep wrapper's plain version), a one-contract
 `analyze_corpus` with its issue synthesis, replay and report in every
-form (analysis/, with the command line's `build_report`), a query
+form (analysis/), the analyzer facade
+(mythril/: `MythrilDisassembler`, `MythrilAnalyzer.fire_lasers` over a
+two-contract corpus with its overlapped prepass, `dump_statespace`, and
+the `disassemble` and `function-to-hash` commands), a query
 through the host solver stack (`get_model`: the bit-blaster and the
 CDCL of the port's own g++ library), the host walk of a contract under
 `--device-ownership never` (the LASER engine, its plugins and the
@@ -99,10 +102,13 @@ from mythril_tpu_torch.support.signatures import SignatureDB
                                  waves=8, device="cpu")
 assert owned["owned"] and owned["issues"][0]["swc-id"] == "106", owned
 assert replay.replays_to(owned["issues"][0], device="cpu")
-report, errors = cli.build_report([EVMContract(code="604260003560f81c14600d57005b33ff",
-                                               name="g")], [owned], {})
-assert not errors and all(f() for f in (report.as_text, report.as_markdown,
-                                        report.as_json, report.as_swc_standard_format))
+contract = EVMContract(code="604260003560f81c14600d57005b33ff", name="g")
+report = Report(contracts=[contract])
+for issue in owned["issue_objects"]:
+    issue.add_code_info(contract)
+    report.append_issue(issue)
+assert all(f() for f in (report.as_text, report.as_markdown, report.as_json,
+                         report.as_swc_standard_format))
 assert SignatureDB().get("0xa9059cbb") == ["transfer(address,uint256)"]
 import contextlib, io, json
 from mythril_tpu_torch.analysis.static import summary_for
@@ -113,6 +119,22 @@ with contextlib.redirect_stdout(lint_out):
     assert cli.main(["lint", "--bin-runtime", "-c", "604260003560f81c14600d57005b33ff",
                      "-o", "json"]) == 0
 assert json.loads(lint_out.getvalue())[0]["code_hash"] == summary.code_hash
+from mythril_tpu_torch.mythril import MythrilAnalyzer, MythrilDisassembler
+dis = MythrilDisassembler()
+for code in ("604260003560f81c14600d57005b33ff", "600035600757005bfe"):
+    dis.load_from_bytecode(code, bin_runtime=True)
+facade = MythrilAnalyzer(dis, strategy="bfs", use_onchain_data=False, execution_timeout=30,
+                         address="0x" + "11" * 20,
+                         max_depth=64, loop_bound=3, deterministic_solving=True,
+                         specialize=False, blockjit=False, device="cpu")
+facade_report = json.loads(facade.fire_lasers(transaction_count=1).as_json())
+assert sorted(i["swc-id"] for i in facade_report["issues"]) == ["106", "110"], facade_report
+assert len(facade.dump_statespace(dis.contracts[1])["nodes"]) > 0
+cmd_out = io.StringIO()
+with contextlib.redirect_stdout(cmd_out):
+    assert cli.main(["disassemble", "--bin-runtime", "-c", "33ff"]) == 0
+    assert cli.main(["function-to-hash", "transfer(address,uint256)"]) == 0
+assert cmd_out.getvalue() == "Runtime Disassembly: \n0 CALLER\n1 SUICIDE\n\n0xa9059cbb\n", cmd_out
 import os
 from mythril_tpu_torch.laser.smt import ULT, symbol_factory
 from mythril_tpu_torch.support.model import get_model
@@ -208,6 +230,7 @@ def test_entry_points_without_device_raise_where_no_cuda():
     from mythril_tpu_torch.laser.batch import explore
     from mythril_tpu_torch.analysis import corpus, replay
     from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.mythril import MythrilAnalyzer, MythrilDisassembler
     from mythril_tpu_torch.laser.smt import terms as T
     from mythril_tpu_torch.laser.smt.solver import device_race, portfolio
     from mythril_tpu_torch.ops.keccak import keccak256
@@ -233,6 +256,7 @@ def test_entry_points_without_device_raise_where_no_cuda():
                  lambda: corpus.analyze_corpus([("33ff33ff", "", "k")]),
                  lambda: replay.replay_sequence({"steps": []}, 0),
                  lambda: cli.main(["analyze", "--bin-runtime", "-c", "33ff33ff"]),
+                 lambda: MythrilAnalyzer(MythrilDisassembler()),
                  lambda: AnalysisEngine(),
                  lambda: cli.main(["serve", "--port", "0"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -222,18 +222,29 @@ def test_walk_options_keep_the_issues(options, monkeypatch):
 
 def test_cli_passes_the_walk_flags(monkeypatch, capsys):
     from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.mythril import mythril_analyzer
     from mythril_tpu_torch.support.support_args import args
 
     seen = {}
 
-    def record(rows, **kw):
-        seen.update(kw)
-        return [{"name": "MAIN", "issues": [], "issue_objects": [], "complete": True,
-                 "device_complete": False, "owned": False}]
+    class Record:
+        """The walk the analyzer facade builds: its options and the
+        solver timeout in the flag bag."""
 
-    monkeypatch.setattr(port_corpus, "analyze_corpus", record)
+        def __init__(self, contract, address, strategy, **kw):
+            seen.update(kw, strategy=strategy, solver_timeout=args.solver_timeout)
+            self.execution_info = []
+
+    def fire(sym, modules=None):
+        seen["fired_modules"] = modules
+        return []
+
+    monkeypatch.setattr(mythril_analyzer, "SymExecWrapper", Record)
+    monkeypatch.setattr(mythril_analyzer, "fire_lasers", fire)
     for flag in ("call_depth_limit", "iprof", "static_prune", "static_answer", "specialize",
-                 "blockjit"):
+                 "blockjit", "solver_timeout", "device_prepass", "device_solving",
+                 "device_prepass_budget", "device_ownership", "deterministic_solving",
+                 "parallel_solving", "pipeline", "run_deadline_s", "on_timeout"):
         monkeypatch.setattr(args, flag, getattr(args, flag))
     rc = cli.main(["analyze", "--bin-runtime", "-c", "33ff", "--device", "cpu", "-o", "json",
                    "-m", "TxOrigin, Exceptions", "--strategy", "dfs", "--max-depth", "40",
@@ -247,6 +258,7 @@ def test_cli_passes_the_walk_flags(monkeypatch, capsys):
         "strategy": "dfs", "max_depth": 40, "loop_bound": 2, "solver_timeout": 500,
         "create_timeout": 3, "modules": ["TxOrigin", "Exceptions"],
         "disable_dependency_pruning": True}
+    assert seen["fired_modules"] == ["TxOrigin", "Exceptions"]
     # --enable-coverage-strategy is parsed and read nowhere, as in the JAX package
     assert "enable_coverage_strategy" not in seen
     assert (args.call_depth_limit, args.iprof) == (2, True)
