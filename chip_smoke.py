@@ -22,6 +22,9 @@
                                             # phases, then only the analyzer
                                             # facade's command-line checks
                                             # and SymExecWrapper's prepass
+    python3 chip_smoke.py --probes          # device, build, the kernel
+                                            # phases, then only the probes
+                                            # phase (9c)
     python3 chip_smoke.py --ab-overlap      # device, build, the kernel
                                             # phases, then the 13 vendored
                                             # contracts through `analyze`:
@@ -51,9 +54,13 @@
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 non-zero (nothing is caught). They run one at a time, each alone on
-the card, in the order 1-12 (5b after 5, 9b after 9); 9 runs (b), (a) (a
-process of its own), the command-line checks (through the analyzer
-facade, in this process, one at a time) and the wrapper's own prepass.
+the card, in the order 1-12 (5b after 5, 9b and 9c after 9); 9 runs (b),
+(a) (a process of its own), the command-line checks (through the
+analyzer facade, in this process, one at a time) and the wrapper's own
+prepass. Phase 10's plain portfolio_sls references (CPU only) are
+computed meanwhile in one worker process started before phase 4 (the
+synthetic programs' at once, the flip's once phase 7 has made them), and
+phase 10 collects them; the worker is ended on every exit.
 
 1. device: require CUDA; print the card's name and power limit, the
    host's CPU model and the host's dispatch time per trivial CUDA launch
@@ -229,7 +236,7 @@ facade, in this process, one at a time) and the wrapper's own prepass.
    launch); `-c` gated_kill under `--no-specialize` (no explorer
    specialized) and `-c` always_assert under `--no-blockjit` (no block
    substep), each with the default's issues; gated_kill, always_assert,
-   CLEAN and HASHKILL as four `-f` files (the overlapped corpus prepass
+   clean_contract(0) and HASHKILL as four `-f` files (the overlapped corpus prepass
    on a thread beside the walk of every contract, on the card: SWC-106
    and SWC-110, exit 0, not partial; the prepass's waves and wall, the
    walks it served with the card off and the walks' waits on
@@ -280,6 +287,26 @@ facade, in this process, one at a time) and the wrapper's own prepass.
    ready and to the first report, job latency p50 and max, the same
    numbers of the pipelined run under `pipelined`, the schedules'
    walls and the idle share;
+9c. probes: probe_dispatcher (analysis/dispatcher_probe.py) on each of
+   the 13 vendored contracts on the card, every row equal to the JAX
+   package's (tests/test_torch_probes_pinned.json); HybridFuzzer
+   (analysis/hybrid_fuzz.py) on the JAX tests' two-gate and assert
+   contracts at their settings and on metacoin.sol.o at tools/fuzz.py's
+   defaults, each run's covered branches, storage writes and trigger
+   kinds equal to the JAX run's, then one full-width generation (4096
+   lanes of exceptions.sol.o: covered set, storage writes, trigger kinds
+   and every lane's status, journal and storage equal to the JAX
+   generation's), timed warm (ms a generation, lane-steps/s); every flip
+   witness replayed on the card must take its flipped branch;
+   keccak_sponge, slot_write and slot_write_many must launch in the probes
+   and in the fuzz runs. Then the benchmark's host-only leg,
+   analyze_corpus(use_device=False, deterministic_solving=True) as
+   golden_corpus_run runs it, on origin.sol.o and suicide.sol.o: equal
+   to their committed goldens, and no kernel of any kind launched. Then
+   analyze_corpus with its defaults on the facade's four-file corpus:
+   the overlapped schedule (this host has more than one CPU; one
+   OverlappedPrepass on the card), the issue set (SWC, address, title)
+   equal to the JAX facade's overlapped run;
 10. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
    own programs (the search also on the cube fan's first CUBE_CHECK_Q;
    all of them are timed), on queries the
@@ -297,7 +324,9 @@ facade, in this process, one at a time) and the wrapper's own prepass.
    version's operation count gives and the plain version's time, also
    at the flip's own shapes (the first pass and the cube fan, K = 64,
    192 steps; rank_impact_vars' batch) and at Q = 128 queries;
-   registers and spills from ptxas;
+   registers and spills from ptxas; the plain search's references come
+   from the worker process (the log line says how many, its CPU seconds,
+   and how long the phase waited for them);
 11. engine differential: tests/laser/test_engine_differential.py's 48
    random straight-line, memory/SHA3 and branch programs (copied here)
    as lanes of one batch through run.py on the card and one by one
@@ -310,9 +339,12 @@ facade, in this process, one at a time) and the wrapper's own prepass.
 13. report: the `serve` line, then the `kernels` JSON line (each kernel's
    launches on every path: main, symbolic wave, flip frontier, explore,
    analyze, the vendored walks of analyze (b), the race gate's walk,
-   solver, serve, the facade's `-c` runs and its corpus run; for
-   fused_substep and block_substep also `launches_spec_wave`, the 5b
-   wave of their mode), then the result line.
+   solver, serve, the facade's `-c` runs and its corpus run, and 9c's
+   `launches_probe`, `launches_fuzz`, `launches_host_only` (all 0) and
+   `launches_corpus_overlap`; for fused_substep and block_substep also
+   `launches_spec_wave`, the 5b wave of their mode), then the result
+   line. Before it, `[phases]` prints each phase's seconds and the
+   seconds the worker took off phase 10 beside the probes phase's.
 
 After 4 it also prints where a main-path step's time goes
 (torch.profiler: CUDA kernels per step, device busy share, top kernels)
@@ -2119,7 +2151,175 @@ def rand_candidates(rng, prog, K):
     return X
 
 
-def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
+#: torch threads of the worker process that computes the plain
+#: portfolio_sls references beside the card phases: one, at the lowest
+#: priority, so that it takes at most one of the host's cores from the
+#: phases' host-bound dispatch (beside a 3-thread worker the main path
+#: read 12-20% more ms a step than an earlier run without one)
+PLAIN_REF_THREADS = 1
+#: seconds the four largest reference groups (synthetic L=128 K=320, the
+#: cube fan, the two restart frontiers) took in line in the script's last
+#: run without the worker (PERF.md section 5: NVIDIA H100 80GB HBM3,
+#: 700.00 W, a host at 11.56 us a trivial launch)
+INLINE_REFS_S = 84.2
+
+
+def _plain_sls_init(threads):
+    import torch
+
+    os.nice(19)
+    torch.set_num_threads(threads)
+
+
+def _plain_sls_job(cpu_in, K, search_kw, steps):
+    """One plain portfolio_sls reference on the CPU (in the worker, or in
+    line): (its outputs, its operation count, its ms). Tensors travel as
+    numpy arrays."""
+    import torch
+
+    from mythril_tpu_torch.ops import portfolio_sls as ps
+
+    count = {}
+    t0 = time.perf_counter()
+    want = ps.sls_plain(*(torch.from_numpy(a) for a in cpu_in), seed=7, steps=steps, K=K,
+                        count=count, **search_kw)
+    return tuple(w.numpy() for w in want), count, (time.perf_counter() - t0) * 1e3
+
+
+class PlainRefs:
+    """The plain portfolio_sls references phase 10 holds the kernel to
+    (bit for bit, at SLS_CHECK_STEPS), computed on the CPU in one worker
+    process (spawned at the lowest priority, PLAIN_REF_THREADS torch
+    threads) while the card phases run: the synthetic programs' from the
+    start, the flip's programs' (frontier, cube fan, solving, restarts,
+    the occupancy run) once the flip phase has made them. Each is keyed
+    by its inputs, so the phase takes the worker's result for exactly the
+    inputs it holds the kernel to, and computes in line any it finds no
+    job for. Without `start()` (the --kernels mode) every reference is
+    computed in line. `close()` ends the worker. (Building a program
+    twice gives the same tensors, so a key made at submission matches
+    the phase's.)"""
+
+    def __init__(self):
+        self.pool = None
+        self.jobs = {}
+        self.cubes = None
+        self.worker = [0, 0.0]  # references taken from the worker, its ms
+        self.inline = [0, 0.0]  # references computed in the phase, their ms
+        self.wait_s = 0.0
+
+    def start(self):
+        import multiprocessing as mp
+
+        self.pool = mp.get_context("spawn").Pool(1, _plain_sls_init, (PLAIN_REF_THREADS,))
+
+    def close(self):
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
+
+    @staticmethod
+    def _args(cpu_in, K, kn):
+        import hashlib
+
+        from mythril_tpu_torch.ops import portfolio_sls as ps
+
+        arrays = tuple(t.contiguous().numpy() for t in cpu_in)
+        search_kw = ps.search_args(K, kn)
+        h = hashlib.sha256(repr((K, SLS_CHECK_STEPS, sorted(search_kw.items()))).encode())
+        for a in arrays:
+            h.update(repr((a.dtype.str, a.shape)).encode())
+            h.update(a.tobytes())
+        return h.hexdigest(), (arrays, K, search_kw, SLS_CHECK_STEPS)
+
+    def submit(self, groups):
+        from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+
+        if self.pool is None:
+            return
+        for _label, group, ks, kn in groups:
+            cpu_in = pf.stack_programs(group, "cpu")
+            for K in ks:
+                key, job = self._args(cpu_in, K, kn)
+                if key not in self.jobs:
+                    self.jobs[key] = self.pool.apply_async(_plain_sls_job, job)
+
+    def get(self, cpu_in, K, kn):
+        """(the plain outputs as tensors, the operation count, ms)."""
+        import torch
+
+        key, job = self._args(cpu_in, K, kn)
+        pending = self.jobs.pop(key, None)
+        if pending is None:
+            want, count, ms = _plain_sls_job(*job)
+            tally = self.inline
+        else:
+            t0 = time.perf_counter()
+            want, count, ms = pending.get()
+            self.wait_s += time.perf_counter() - t0
+            tally = self.worker
+        tally[0] += 1
+        tally[1] += ms
+        return tuple(torch.from_numpy(w) for w in want), count, ms
+
+
+def sls_check_groups(frontier_progs, cubes, solving, synthetic, knobs):
+    """phase 10's portfolio_sls checks, [(label, programs, K values,
+    knobs)]: the frontier's programs, the cube fan's first CUBE_CHECK_Q,
+    the solving programs, each synthetic program, and the Luby restarts
+    forced (RESTART_BASES) on the frontier and the wide synthetic ones."""
+    groups = [("frontier", list(frontier_progs), SLS_CHECK_K[:1], knobs)] if frontier_progs \
+        else []
+    if cubes:
+        groups.append(("cube fan", cubes[:CUBE_CHECK_Q], SLS_CHECK_K[:1], knobs))
+    if solving:
+        groups += [("solving", solving, SLS_CHECK_K, knobs)]
+    groups += [("synthetic", [p], SLS_CHECK_K[:2], knobs) for p in synthetic]
+    # the Luby restarts inside the budget: frontier and wide synthetic
+    # programs (no early solve) with a small restart unit
+    restart_progs = [("frontier", list(frontier_progs))] if frontier_progs else []
+    restart_progs += [(f"synthetic L={p.limbs}", [p]) for p in synthetic if p.limbs in (16, 64)]
+    for base in RESTART_BASES:
+        for label, group in restart_progs:
+            groups.append((f"{label}, restart_base {base}", group, SLS_CHECK_K[:1],
+                           dict(knobs, restart_base=base)))
+    return groups
+
+
+def occupancy_programs(progs):
+    """The Q = OCCUPANCY_Q run held to the plain search: the L = 16
+    programs cycled."""
+    return cycled([p for p in progs if p.limbs == 16], OCCUPANCY_Q)
+
+
+def submit_synthetic_refs(refs):
+    """The synthetic programs' references, to the worker at the start."""
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+
+    refs.submit(sls_check_groups([], [], [], synthetic_programs(),
+                                 dict(pf.PORTFOLIO_DEFAULTS)))
+
+
+def submit_flip_refs(refs, flip):
+    """Once the flip phase has made its programs: the cube fan's programs
+    (rank_impact_vars on the card) and every remaining reference of
+    phase 10, to the worker."""
+    from mythril_tpu_torch.laser.smt.solver import portfolio as pf
+
+    frontier = list(flip["programs"])
+    refs.cubes = cube_programs(frontier) if frontier else []
+    solving = list(flip["solving"]) + solving_programs()
+    synthetic = synthetic_programs()
+    knobs = dict(pf.PORTFOLIO_DEFAULTS)
+    refs.submit(sls_check_groups(frontier, refs.cubes, solving, synthetic, knobs))
+    refs.submit([("occupancy", occupancy_programs(frontier + solving + synthetic), (64,),
+                  knobs)])
+    log(f"[portfolio] {len(refs.jobs)} plain portfolio_sls references queued to the worker "
+        f"({len(refs.cubes)} cube-fan programs built on the card)")
+
+
+def phase_portfolio_kernels(card, frontier_progs, solving_progs=(), refs=None):
     """Both portfolio kernels held to their plain versions (run on CPU
     copies of the same inputs) on the frontier's own programs, on
     programs the search solves (`solving_progs`, the one-branch
@@ -2127,7 +2327,8 @@ def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
     for the search, with the Luby restarts forced (RESTART_BASES); every
     check under the plan's own choice, the global variant forced and each
     cluster size forced. Then timed against their bounds, also at the
-    flip's own shapes and at Q = OCCUPANCY_Q."""
+    flip's own shapes and at Q = OCCUPANCY_Q. The plain search's
+    references come from `refs` (a PlainRefs; None: all in line)."""
     import numpy as np
     import torch
 
@@ -2135,6 +2336,12 @@ def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
     from mythril_tpu_torch.ops import portfolio_eval as pe
     from mythril_tpu_torch.ops import portfolio_sls as ps
 
+    import threading
+
+    refs = PlainRefs() if refs is None else refs
+    log(f"[portfolio] this process at the phase's start: {torch.get_num_threads()} torch "
+        f"threads, {threading.active_count()} Python threads; the worker has finished "
+        f"{sum(job.ready() for job in refs.jobs.values())} of its {len(refs.jobs)} references")
     rng = np.random.default_rng(4)
     solving = list(solving_progs) + solving_programs()
     synthetic = synthetic_programs()
@@ -2238,38 +2445,23 @@ def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
         f"per trivial launch on {card}")
 
     # portfolio_sls: Q programs in one launch, bit-equal at a short budget,
-    # under the plan's choice, the global variant and each cluster size
+    # under the plan's choice, the global variant and each cluster size;
+    # the plain references come from the worker (refs) where it has them
     knobs = dict(pf.PORTFOLIO_DEFAULTS)
     sls_bad = sls_err = restarts = 0
     sls_rows = []
     forced = [("global", None)] + [(None, c) for c in ps.CLUSTER_SIZES]
-    groups = [("frontier", list(frontier_progs), SLS_CHECK_K[:1], knobs)] if frontier_progs \
-        else []
     # the cube fan's programs, as the flip phase's second launch builds
     # them (rank_impact_vars on the card, then the cubes' extra
-    # constraints on each root)
-    cubes = cube_programs(list(frontier_progs)) if frontier_progs else []
-    if cubes:
-        groups.append(("cube fan", cubes[:CUBE_CHECK_Q], SLS_CHECK_K[:1], knobs))
-    groups += [("solving", solving, SLS_CHECK_K, knobs)]
-    groups += [("synthetic", [p], SLS_CHECK_K[:2], knobs) for p in synthetic]
-    # the Luby restarts inside the budget: frontier and wide synthetic
-    # programs (no early solve) with a small restart unit
-    restart_progs = [("frontier", list(frontier_progs))] if frontier_progs else []
-    restart_progs += [(f"synthetic L={p.limbs}", [p]) for p in synthetic if p.limbs in (16, 64)]
-    for base in RESTART_BASES:
-        for label, group in restart_progs:
-            groups.append((f"{label}, restart_base {base}", group, SLS_CHECK_K[:1],
-                           dict(knobs, restart_base=base)))
+    # constraints on each root), built once the flip phase ended
+    cubes = refs.cubes if refs.cubes is not None else (
+        cube_programs(list(frontier_progs)) if frontier_progs else [])
+    groups = sls_check_groups(frontier_progs, cubes, solving, synthetic, knobs)
     for label, group, ks, kn in groups:
         card_in = pf.stack_programs(group, "cuda")
         cpu_in = pf.stack_programs(group, "cpu")
         for K in ks:
-            count = {}
-            t0 = time.perf_counter()
-            want = ps.sls_plain(*cpu_in, seed=7, steps=SLS_CHECK_STEPS, K=K, count=count,
-                                **ps.search_args(K, kn))
-            plain_ms = (time.perf_counter() - t0) * 1e3
+            want, count, plain_ms = refs.get(cpu_in, K, kn)
             restarts += count.get("restarts", 0)
             bad = 0
             plans = []
@@ -2374,11 +2566,9 @@ def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
                  (per_eval("frontier") * OCCUPANCY_Q * 64 * (SLS_CHECK_STEPS + 2)
                   / INT32_OPS_PER_S * 1e3, "operations (scaled)"))
     narrow = [p for p in progs if p.limbs == 16]
-    occ = cycled(narrow, OCCUPANCY_Q)
+    occ = occupancy_programs(progs)
     cpu_in = pf.stack_programs(occ, "cpu")
-    count = {}
-    want = ps.sls_plain(*cpu_in, seed=7, steps=SLS_CHECK_STEPS, K=64, count=count,
-                        **ps.search_args(64, knobs))
+    want, count, _ = refs.get(cpu_in, 64, knobs)
     got = ps.portfolio_sls(*pf.stack_programs(occ, "cuda"), seed=7, steps=SLS_CHECK_STEPS,
                            K=64, knobs=knobs)
     sync()
@@ -2392,6 +2582,12 @@ def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
 
     log(f"[portfolio] SM clock, most, power, temperature after the timed shapes: "
         f"{sm_clocks()}")
+    moved_s = refs.worker[1] / 1e3 - refs.wait_s
+    log(f"[portfolio] plain portfolio_sls references: {refs.worker[0]} from the worker process "
+        f"({refs.worker[1] / 1e3:.1f} s of its CPU beside the card phases; this phase waited "
+        f"{refs.wait_s:.1f} s for them), {refs.inline[0]} computed here "
+        f"({refs.inline[1] / 1e3:.1f} s): {moved_s:.1f} s taken off this phase, against "
+        f"{INLINE_REFS_S} s for the four largest groups in line before the worker")
     main = sls_rows[0]
     if enum_row["ms"] is None or main["ms"] is None:
         raise SystemExit("the profiler saw no portfolio kernel at the kernels line's shapes")
@@ -2407,7 +2603,11 @@ def phase_portfolio_kernels(card, frontier_progs, solving_progs=()):
                               bound_by=main["bound_by"], library_ms=None, plain_device="cpu",
                               shape=f"{main['programs']} Q={main['q']}, K={main['K']}, "
                               f"L={main['limbs']}, {SLS_CHECK_STEPS} steps", plan=main["plan"],
-                              restarts=restarts, checks=sls_rows, shapes=sls_shapes),
+                              restarts=restarts, checks=sls_rows, shapes=sls_shapes,
+                              plain_refs=dict(worker=refs.worker[0], worker_s=refs.worker[1] / 1e3,
+                                              inline=refs.inline[0],
+                                              inline_s=refs.inline[1] / 1e3,
+                                              wait_s=refs.wait_s, moved_s=moved_s)),
     }
 
 
@@ -2995,11 +3195,16 @@ RACE_GATE = ("600035" "63ffffffff16" "602035" "63ffffffff16" "81600110" "8160011
 RACE_GATE_TIMEOUT_MS = 3000
 ANALYZE_SWC = {"gated_kill": ("106", 15, "Unprotected Selfdestruct", "High"),
                "always_assert": ("110", 0, "Exception State", "Medium")}
-#: a provably clean contract (the JAX corpusgen's clean_contract(0)): every
-#: detection module screens off, so analyze answers it statically
-CLEAN = ("clean", "600035" "60e01c" "80" "63c0ffee00" "14" "601a" "57" "630ddba110" "14"
-         "6024" "57" "00" "5b" "6001" "6002" "01" "6000" "55" "00"
-         "5b" "602a" "6000" "52" "6020" "6000" "f3")
+
+
+def clean_row():
+    """A provably clean contract, the port's corpusgen.clean_contract(0):
+    every detection module screens off, so analyze answers it statically."""
+    from mythril_tpu_torch.analysis.corpusgen import clean_contract
+
+    return ("clean", clean_contract(0))
+
+
 #: the JAX `myth lint` rows of the 13 vendored contracts (no wall times, no
 #: contract names; tests/test_torch_static.py --pin-lint)
 LINT_PIN = ROOT / "tests" / "test_torch_static_lint_pinned.json"
@@ -3013,9 +3218,9 @@ FACADE_PIN = ROOT / "tests" / "test_torch_facade_pinned.json"
 #: corpus, the race gate's (its queries outlast the CDCL sprint on any
 #: host, and clamp to the deadline), before gated_kill and always_assert
 FACADE_DEADLINE_S = 1.0
-#: the facade's corpus check: the milestone corpus, CLEAN, and HASHKILL,
-#: the one whose waves run SHA3 (no other does, so keccak_sponge would
-#: not launch)
+#: the facade's corpus check: the milestone corpus, clean_contract(0), and
+#: HASHKILL, the one whose waves run SHA3 (no other does, so keccak_sponge
+#: would not launch)
 FACADE_CORPUS_NAMES = ("gated_kill", "always_assert", "clean", "hashkill")
 
 
@@ -3107,7 +3312,8 @@ def recorded_prepasses():
 def prepass_line(rec):
     """The overlapped prepass's numbers, for the log."""
     stats = next((o["stats"] for o in (rec["final"] or {}).values() if o.get("stats")), {})
-    return (f"prepass on {rec['device']}: {stats.get('waves')} waves, "
+    where = "the card (device None)" if rec["device"] == "None" else rec["device"]
+    return (f"prepass on {where}: {stats.get('waves')} waves, "
             f"{stats.get('wall_s')} s of exploration, {rec.get('wall_s', 0):.3f} s "
             f"start to finish; {rec.get('deviceless')} walk(s) device-less; the walks waited "
             f"{rec['walk_lock_wait_s']:.3f} s on HOST_SYMBOLIC_LOCK")
@@ -3271,6 +3477,7 @@ def vendored_ladder_run(out_path, device=None):
 
     args.deterministic_solving = True
     args.sprint_cap_s = VENDORED_LADDER_CAP_S
+    corpus._effective_cpus = lambda: 1  # prepass first, as the JAX pin ran
     S.reset_blast_session()
     model.clear_cache()
     pf.device_solve_batch = enum_only_solver(pf, device=device)
@@ -3362,7 +3569,7 @@ def facade_checks(card):
             raise SystemExit(f"facade: -c {name} {flag} gave exit {rc}, {got}, specialization "
                              f"{spec}; want {want} with {flag} in force; stderr {err[-2000:]!r}")
     with tempfile.TemporaryDirectory() as tmp:
-        codes = dict((MILESTONE + (CLEAN, ("hashkill", HASHKILL))))
+        codes = dict((MILESTONE + (clean_row(), ("hashkill", HASHKILL))))
         files = []
         for name in FACADE_CORPUS_NAMES:
             (Path(tmp) / name).write_text(codes[name] + "\n")
@@ -3376,7 +3583,7 @@ def facade_checks(card):
         doc = json.loads(text) if rc in (0, 1) else {}
         got = facade_fingerprints(doc) if doc else None
         swcs = sorted({row[0] for rows in (got or {}).values() for row in rows})
-        log(f"[facade] the milestone corpus, CLEAN and HASHKILL as four -f files: exit {rc}, "
+        log(f"[facade] the milestone corpus, clean_contract(0) and HASHKILL as four -f files: exit {rc}, "
             f"{secs:.1f} s, issues {got}, partial {doc.get('partial', False)}; "
             f"{prepass_line(pres[0]) if pres else 'no prepass'}; launches "
             f"{out['launches_corpus']}")
@@ -3688,6 +3895,10 @@ def analyze_default(card):
                 spent[_key] += time.perf_counter() - t0
 
         setattr(corpus, attr, timing)
+    # prepass first, the schedule of the JAX pin (one CPU): the overlapped
+    # schedule runs in the probes phase
+    timed["_effective_cpus"] = corpus._effective_cpus
+    corpus._effective_cpus = lambda: 1
     resilience.DegradationLog().reset()
     stats_solver = SolverStatistics()
     stats_solver.reset()
@@ -4283,6 +4494,278 @@ def phase_serve(card):
     serve_cli(card)
     out["idle_share_one_wave"] = serve_profile(card)
     return {"serve": out, "launches": launches}
+
+
+# phase 9c: the concrete probes (analysis/dispatcher_probe.py,
+# analysis/hybrid_fuzz.py) and the benchmark's inputs (the host-only leg,
+# the overlapped analyze_corpus)
+#: the JAX package's probe rows and fuzz runs (tests/test_torch_probes.py
+#: --pin-probes)
+PROBES_PIN = ROOT / "tests" / "test_torch_probes_pinned.json"
+#: the fuzz runs held to the pin: the JAX tests' two-gate and assert
+#: contracts at their settings, metacoin.sol.o at tools/fuzz.py's defaults
+PROBE_FUZZ = ("two_gate", "assert_gate", "metacoin")
+#: warm runs of the full-width generation
+FULL_WIDTH_REPS = 3
+#: the host-only leg's fixtures: two whose golden walks take about a second
+HOST_ONLY_FIXTURES = ("origin.sol", "suicide.sol")
+GOLDEN_DIR = ROOT / "tests" / "testdata" / "goldens"
+
+
+def lane_records(out, n):
+    """Each lane's [status, journaled JUMPI decisions in order, storage
+    journal in order] of a finished batch (tests/test_torch_probes.py's
+    form, whose digest the pin holds)."""
+    status, br_pc, br_taken, br_cnt, keys, vals, cnt = (
+        t.cpu().numpy() for t in (out.status, out.br_pc, out.br_taken, out.br_cnt,
+                                  out.storage_keys, out.storage_vals, out.storage_cnt))
+
+    def word(row):
+        return hex(sum(int(row[i]) << (16 * i) for i in range(row.shape[-1])))
+
+    records = []
+    for i in range(n):
+        k = min(int(br_cnt[i]), br_pc.shape[1])
+        records.append([
+            int(status[i]),
+            [[int(br_pc[i, j]), bool(br_taken[i, j])] for j in range(k)],
+            [[word(keys[i, j]), word(vals[i, j])] for j in range(int(cnt[i]))],
+        ])
+    return records
+
+
+def flip_takes_its_branch(code_hex, calldata, target, prefix):
+    """A fuzz flip's witness run on the card as the fuzzer runs a lane:
+    its journal must follow the prefix and take the flipped direction."""
+    from mythril_tpu_torch.laser.batch.explore import DEFAULT_ADDRESS, DEFAULT_CALLER
+    from mythril_tpu_torch.laser.batch.run import run
+    from mythril_tpu_torch.laser.batch.state import make_batch, make_code_table
+
+    table = make_code_table([bytes.fromhex(code_hex)])
+    batch = make_batch(1, calldata=[calldata], caller=DEFAULT_CALLER, address=DEFAULT_ADDRESS)
+    out, _ = run(batch, table, max_steps=4096)
+    (record,) = lane_records(out, 1)
+    want = [list(e) for e in prefix[:-1]] + [list(target)]
+    return record[1][:len(want)] == want
+
+
+def probe_dispatchers(card, pin):
+    """probe_dispatcher on the 13 vendored contracts on the card, each
+    contract's rows equal to the JAX package's (the pin)."""
+    from mythril_tpu_torch.analysis.dispatcher_probe import probe_dispatcher
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+
+    files = sorted(wave.CONTRACTS.glob("*.sol.o"))
+    reset_launches()
+    t0 = time.perf_counter()
+    bad, n_rows = [], 0
+    for f in files:
+        rows = json.loads(json.dumps(probe_dispatcher(f.read_text().strip())))
+        n_rows += len(rows)
+        if rows != pin[f.name]:
+            bad.append(f.name)
+    sync()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[probes] probe_dispatcher on {len(files)} vendored contracts ({n_rows} lanes in all): "
+        f"{secs:.3f} s, rows equal to the JAX package's but {bad}; launches {launches} on {card}")
+    if bad or len(files) != 13:
+        raise SystemExit(f"probe_dispatcher disagrees with the JAX rows on {bad}")
+    check_path_launches("dispatcher probe", launches)
+    return {"probe_s": secs, "launches": launches}
+
+
+def fuzz_runs(card, pin):
+    """HybridFuzzer on the card: PROBE_FUZZ at their pinned settings, each
+    run's covered branches, storage writes and trigger kinds equal to the
+    JAX run's; then one full-width generation (4096 lanes of
+    exceptions.sol.o), its covered set, storage writes, trigger kinds and
+    every lane's record (digest) equal to the JAX generation's, timed
+    warm. The launches are those of these runs; then every flip witness
+    is replayed on the card and must take its flipped branch."""
+    import hashlib
+
+    from mythril_tpu_torch.analysis import hybrid_fuzz
+    from mythril_tpu_torch.laser.smt.solver import device_race
+
+    out = {"runs": {}}
+    reset_launches()
+    flips = []  # (code, flipped target, journal prefix, calldata) of every solved flip
+    replay = hybrid_fuzz._symbolic_replay
+    for name in PROBE_FUZZ:
+        case = pin["fuzz"][name]
+
+        def recording(disassembly, calldata_len, script, _code=case["code"], **kw):
+            data = replay(disassembly, calldata_len, script, **kw)
+            if data is not None:
+                pc, taken = script[-1]
+                flips.append((_code, (pc, not taken), list(script), bytes(data)))
+            return data
+
+        n_flips = len(flips)
+        hybrid_fuzz._symbolic_replay = recording
+        try:
+            t0 = time.perf_counter()
+            result = json.loads(json.dumps(
+                hybrid_fuzz.HybridFuzzer(case["code"], **case["settings"]).run()))
+            sync()
+            secs = time.perf_counter() - t0
+        finally:
+            hybrid_fuzz._symbolic_replay = replay
+        want = case["result"]
+        same = {key: result[key] == want[key] for key in ("covered_branches", "storage_writes")}
+        same["trigger_kinds"] = sorted(result["triggers"]) == sorted(want["triggers"])
+        out["runs"][name] = dict(seconds=secs, generations=result["generations"],
+                                 covered=len(result["covered_branches"]),
+                                 flips=len(flips) - n_flips, triggers=sorted(result["triggers"]))
+        log(f"[probes] fuzz {name}: {secs:.3f} s, {result['generations']} generations, "
+            f"{len(result['covered_branches'])} branch directions, {len(flips) - n_flips} "
+            f"flips, storage slots {len(result['storage_writes'])}, triggers "
+            f"{sorted(result['triggers'])}; equal to the JAX run: {same} on {card}")
+        if not all(same.values()):
+            raise SystemExit(f"fuzz {name}: {result} differs from the JAX run {want}")
+    fw = pin["full_width"]
+    fuzzer = hybrid_fuzz.HybridFuzzer(fw["code"], calldata_len=fw["calldata_len"],
+                                      lanes_per_generation=fw["lanes_per_generation"],
+                                      seed=fw["seed"])
+    inputs = fuzzer._seed_inputs()
+    real, seen = hybrid_fuzz.batch_run, {}
+
+    def recording(batch, table, **kw):
+        final, steps = real(batch, table, **kw)
+        seen.update(final=final, steps=steps)
+        return final, steps
+
+    hybrid_fuzz.batch_run = recording
+    try:
+        t0 = time.perf_counter()
+        fuzzer._run_generation(inputs)
+        sync()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        digest = hashlib.sha256(json.dumps(lane_records(seen["final"], len(inputs)))
+                                .encode()).hexdigest()
+        got = dict(covered_branches=json.loads(json.dumps(sorted(fuzzer.covered))),
+                   storage_writes={hex(k): sorted(hex(v) for v in vs)
+                                   for k, vs in sorted(fuzzer.storage_writes.items())},
+                   trigger_kinds=sorted(fuzzer.triggers), digest=digest)
+        bad = [k for k in got if got[k] != fw[k]]
+        device_race.wait_idle()
+        sync()
+        out["launches"] = read_launches()
+        warm = []
+        for _ in range(FULL_WIDTH_REPS):
+            t0 = time.perf_counter()
+            fuzzer._run_generation(inputs)
+            sync()
+            warm.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        hybrid_fuzz.batch_run = real
+    ms = statistics.median(warm)
+    lanes = len(inputs)
+    out["full_width"] = dict(lanes=lanes, steps=seen["steps"], cold_ms=cold_ms, ms=ms,
+                             warm_ms=warm, lane_steps_per_s=lanes * seen["steps"] / (ms / 1e3),
+                             covered=len(got["covered_branches"]),
+                             trigger_kinds=got["trigger_kinds"])
+    log(f"[probes] fuzz full width, {lanes} lanes of {fw['contract']}: {seen['steps']} steps a "
+        f"generation, cold {cold_ms:.1f} ms, warm {[round(w, 1) for w in warm]} ms (median "
+        f"{ms:.1f} ms a generation, {out['full_width']['lane_steps_per_s']:,.0f} lane-steps/s); "
+        f"{len(got['covered_branches'])} branch directions, triggers {got['trigger_kinds']}, "
+        f"lane records equal to the JAX generation's but {bad} on {card}")
+    if bad:
+        raise SystemExit(f"the full-width generation differs from the JAX one in {bad}")
+    log(f"[probes] fuzz launches (the pinned runs and the full-width generation's first): "
+        f"{out['launches']}")
+    check_path_launches("fuzzer", out["launches"])
+    t0 = time.perf_counter()
+    missed = [(target, data.hex()) for code, target, prefix, data in flips
+              if not flip_takes_its_branch(code, data, target, prefix)]
+    sync()
+    log(f"[probes] {len(flips)} flip witnesses replayed on the card in "
+        f"{time.perf_counter() - t0:.3f} s: {len(flips) - len(missed)} take their flipped branch")
+    if missed or not flips:
+        raise SystemExit(f"fuzz witnesses that do not take their branch: {missed}")
+    return out
+
+
+def host_only_leg(card):
+    """analyze_corpus(use_device=False, deterministic_solving=True), the
+    benchmark's baseline leg, as golden_corpus_run runs it, on
+    HOST_ONLY_FIXTURES: each equal to its committed JAX golden, and not
+    one kernel launched."""
+    from mythril_tpu_torch.analysis.goldens import canonical_issues, golden_corpus_run
+    from mythril_tpu_torch.laser.smt.solver import device_race
+
+    reset_launches()
+    t0 = time.perf_counter()
+    results = golden_corpus_run(HOST_ONLY_FIXTURES)
+    device_race.wait_idle()
+    sync()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    bad = [name for name, r in results
+           if r["error"] is not None or canonical_issues(r["issues"]) != json.loads(
+               (GOLDEN_DIR / f"{name}.issues.json").read_text())]
+    log(f"[probes] host-only leg (golden_corpus_run) on {[n for n, _ in results]}: {secs:.3f} s, "
+        f"walks {[r['wall_s'] for _, r in results]} s, equal to the goldens but {bad}; launches "
+        f"{launches} on {card}")
+    if bad or len(results) != len(HOST_ONLY_FIXTURES) or any(launches.values()):
+        raise SystemExit(f"the host-only leg: goldens differ on {bad} or kernels launched "
+                         f"{launches}")
+    return {"seconds": secs, "launches": launches}
+
+
+def corpus_overlapped(card):
+    """analyze_corpus with its defaults on the facade's four-file corpus
+    (FACADE_CORPUS_NAMES) on this multi-CPU host: the overlapped prepass
+    (one OverlappedPrepass, on the card) beside the walks, the issue set
+    (SWC, address, title) equal to the JAX facade's overlapped run (a
+    severity can move with the schedule)."""
+    from mythril_tpu_torch.analysis import corpus
+    from mythril_tpu_torch.laser.smt.solver import device_race
+
+    pin = json.loads(FACADE_PIN.read_text())["chip"]["corpus"]
+    want = {name: sorted(row[:3] for row in rows) for name, rows in pin.items()}
+    codes = dict(MILESTONE + (clean_row(), ("hashkill", HASHKILL)))
+    rows = [(codes[name], "", name) for name in FACADE_CORPUS_NAMES]
+    cpus = corpus._effective_cpus()
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded_prepasses() as pres:
+        results = corpus.analyze_corpus(rows, transaction_count=2)
+    device_race.wait_idle()
+    sync()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    got = {r["name"]: sorted([i["swc-id"], i["address"], i["title"]] for i in r["issues"])
+           for r in results if r["issues"]}
+    complete = all(r["complete"] for r in results)
+    log(f"[probes] analyze_corpus on the four-file corpus ({cpus} CPUs): {secs:.3f} s, "
+        f"{prepass_line(pres[0]) if pres else 'no overlapped prepass'}; owned "
+        f"{[r['name'] for r in results if r.get('owned')]}, statically answered "
+        f"{[r['name'] for r in results if r.get('static_answered')]}, issues {got}, complete "
+        f"{complete}; launches {launches} on {card}")
+    # the device analyze_corpus hands the prepass: None, its default, is the card
+    if cpus < 2 or len(pres) != 1 or pres[0]["device"] not in ("None", "cuda"):
+        raise SystemExit(f"analyze_corpus did not take the overlapped schedule ({cpus} CPUs, "
+                         f"prepasses {pres})")
+    if got != want or not complete:
+        raise SystemExit(f"the overlapped analyze_corpus gave {got}; want the JAX facade's {want}")
+    check_path_launches("overlapped analyze_corpus", launches)
+    return {"seconds": secs, "launches": launches,
+            "deviceless": pres[0].get("deviceless"), "prepass_s": pres[0].get("wall_s")}
+
+
+def phase_probes(card):
+    """9c: the dispatcher probe and the hybrid fuzzer on the card, held to
+    the JAX package's (PROBES_PIN); the host-only analyze_corpus leg (0
+    launches); the overlapped analyze_corpus."""
+    pin = json.loads(PROBES_PIN.read_text())
+    out = {"probe": probe_dispatchers(card, pin["probe"]), "fuzz": fuzz_runs(card, pin),
+           "host_only": host_only_leg(card), "corpus_overlap": corpus_overlapped(card)}
+    out["launches"] = {"probe": out["probe"]["launches"], "fuzz": out["fuzz"]["launches"],
+                       "host_only": out["host_only"]["launches"],
+                       "corpus_overlap": out["corpus_overlap"]["launches"]}
+    return out
 
 
 def phase_bignum(card):
@@ -4882,6 +5365,26 @@ def main() -> int:
     if args == ["--ab-overlap"]:
         ab_overlap(card)
         return 0
+    if args == ["--probes"]:
+        t0 = time.perf_counter()
+        probes = phase_probes(card)
+        log(f"[probes] {time.perf_counter() - t0:.1f} s in all")
+        print(json.dumps(probes["launches"]))
+        return 0
+    refs = PlainRefs()
+    try:
+        return full_run(kind, card, kern, host_us, refs)
+    finally:
+        refs.close()
+
+
+def full_run(kind, card, kern, host_us, refs) -> int:
+    """Every phase from the main path on, then the report lines. The
+    worker computing phase 10's plain references starts first."""
+    import torch
+
+    refs.start()
+    submit_synthetic_refs(refs)
     walls = {}
 
     def phase(name, fn, *a):
@@ -4900,17 +5403,22 @@ def main() -> int:
     flips = phase("symbolic parity", phase_sym_parity)
     solver = phase("solver", phase_solver, card, flips)
     flip = phase("flip frontier", phase_flip, card, sym_wave["frontier"])
+    phase("portfolio references", submit_flip_refs, refs, flip)
     explore = phase("explorer", phase_explore, card)
     analyze = phase("analyze (b)", analyze_default, card)
     phase("analyze (a)", analyze_pinned_ladder, card)
     facade = phase("analyze cli", facade_checks, card)
     phase("analyze wrapper", wrapper_prepass, card)
     serve = phase("serve", phase_serve, card)
+    probes = phase("probes", phase_probes, card)
     kern.update(phase("portfolio kernels", phase_portfolio_kernels, card, flip["programs"],
-                      flip["solving"]))
+                      flip["solving"], refs))
     phase("engine differential", phase_engine_differential, card)
     phase("vmtests", phase_vmtests)
     log(f"[phases] seconds from the main path on: {json.dumps(walls)}")
+    moved = kern["portfolio_sls"]["plain_refs"]["moved_s"]
+    log(f"[phases] the plain portfolio_sls references moved off the portfolio phase: "
+        f"{moved:.1f} s; the probes phase: {walls['probes']:.1f} s")
 
     where = {
         "keccak_f1600": ("mythril_tpu_torch/csrc/keccak_f.cu",
@@ -4948,6 +5456,7 @@ def main() -> int:
         "launches_serve": serve["launches"][name],
         "launches_facade": facade["launches"][name],
         "launches_facade_corpus": facade["launches_corpus"][name],
+        **{f"launches_{path}": spent[name] for path, spent in probes["launches"].items()},
         **({"launches_many": main_path["launches"]["slot_write_many"],
             "launches_many_symbolic_wave": sym_wave["launches"]["slot_write_many"],
             "launches_many_explore": explore["launches"]["slot_write_many"],
@@ -4955,6 +5464,8 @@ def main() -> int:
             "launches_many_serve": serve["launches"]["slot_write_many"],
             "launches_many_facade": facade["launches"]["slot_write_many"],
             "launches_many_facade_corpus": facade["launches_corpus"]["slot_write_many"],
+            **{f"launches_many_{path}": spent["slot_write_many"]
+               for path, spent in probes["launches"].items()},
             "host_us_per_call_many": host_us["slot_write_many, 8 banks"]}
            if name == "slot_write" else {}),
         "mismatches": k.pop("mismatches"),

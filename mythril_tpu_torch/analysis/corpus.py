@@ -9,11 +9,25 @@ are synthesized from the banked concrete evidence (analysis/prepass.py,
 analysis/evidence.py) with no host walk. Every other contract, and every
 contract under `--device-ownership never`, goes through the host walk
 (`_analyze_one`: SymExecWrapper + fire_lasers) with its prepass outcome
-injected, after the exploration has finished, so that the walk's solver
-races have the card to themselves.
+injected.
+
+`analyze_corpus` takes the JAX schedule: the prepass runs on a thread
+of its own beside the walks (`OverlappedPrepass`, smallest code first,
+with the JAX drain window) when the device axis is on, the corpus has
+more than one contract, and either this process may run on more than one
+CPU (`_effective_cpus`) or OVERLAP_MIN_CORPUS rows are runnable;
+otherwise the prepass runs first and the walks after it, so that their
+solver races have the card to themselves. `use_device=False` is the
+host-only leg (no prepass, every walk under `device_prepass` and
+`device_solving` "never": nothing launches on the card);
+`deterministic_solving` is scoped to the call; `on_timeout="fail"`
+raises DeadlineExpiredError when a contract was skipped.
 
 Where the port differs, and how it says so:
 
+- `use_device=None` means the card (`device`, None: the card, which
+  must be there), where the JAX package asks whether an accelerator is
+  present;
 - a prepass failure raises (the JAX package returns no outcomes so that
   its host walk carries on without the card);
 - a walk that raises is recorded in the result's `error`, and the
@@ -24,12 +38,12 @@ Where the port differs, and how it says so:
   it the selector masks), the corpus link pass and the routing triage
   are not ported and have no switch here;
 - `OverlappedPrepass`, the corpus prepass on a thread of its own beside
-  the analyzer facade's walks (mythril/mythril_analyzer.py), is the JAX
-  one, with two departures: an exception in the prepass thread is kept
-  and re-raised (by `outcome_for`, `drain` and `finish`, after the
-  PREPASS_FAILED record), where the JAX `finish` returns no outcomes and
-  the walks go on without the card; and a drain or finish that times out
-  on a hung device call is recorded in the DegradationLog
+  the walks (here and in the analyzer facade, mythril/mythril_analyzer.py),
+  is the JAX one, with two departures: an exception in the prepass
+  thread is kept and re-raised (by `outcome_for`, `drain` and `finish`,
+  after the PREPASS_FAILED record), where the JAX `finish` returns no
+  outcomes and the walks go on without the card; and a drain or finish
+  that times out on a hung device call is recorded in the DegradationLog
   (`prepass-drain-timed-out`), not only logged;
 - the static-answer triage (`_static_triage`, on unless
   `args.static_answer` or `args.static_prune` is off) is the JAX one,
@@ -41,14 +55,29 @@ Where the port differs, and how it says so:
 from __future__ import annotations
 
 import logging
+import multiprocessing as mp
+import os
 import time
 import traceback
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
 log = logging.getLogger(__name__)
 
-#: corpus size from which the prepass runs lean-cap waves and narrower
-#: stripes (the JAX package's overlap threshold, which sizes both)
+
+def _effective_cpus() -> int:
+    """CPUs this process may actually run on: the affinity mask, not the
+    host count (a container pinned to one core of a 64-core host must
+    take the single-core schedule)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        return mp.cpu_count()
+
+
+#: corpus size from which the overlapped prepass pays even on one CPU
+#: (the per-wave contention amortizes over many walks), and from which
+#: the prepass runs lean-cap waves and narrower stripes
 OVERLAP_MIN_CORPUS = 32
 
 #: per-lane (memory bytes, storage slots) below and from OVERLAP_MIN_CORPUS
@@ -266,19 +295,21 @@ class OverlappedPrepass:
     re-raise the thread's exception once it is known (the exploration's
     failure is recorded PREPASS_FAILED by `corpus_device_prepass`), and a
     drain or finish that gives up on a hung thread is recorded in the
-    DegradationLog (`prepass-drain-timed-out`). The JAX budget and mesh
-    arguments are left out: the facade passes neither, and the mesh is
-    not ported."""
+    DegradationLog (`prepass-drain-timed-out`). The JAX mesh and
+    selector-mask arguments are left out (neither is ported); `waves`
+    caps the explorer's waves a phase, as `analyze_corpus(waves=)` does."""
 
     def __init__(
         self,
         contracts: List[Tuple[str, str, str]],
         address: int,
         transaction_count: int,
+        budget_s: Optional[float] = None,
         execution_timeout: Optional[float] = None,
         ownership: bool = False,
         deadline=None,
         device=None,
+        waves: int = PREPASS_WAVES,
     ) -> None:
         import threading
 
@@ -299,6 +330,7 @@ class OverlappedPrepass:
                 self._final.update(
                     corpus_device_prepass(
                         contracts,
+                        budget_s=budget_s,
                         address=address,
                         transaction_count=transaction_count,
                         host_lock=self.lock,
@@ -309,6 +341,7 @@ class OverlappedPrepass:
                         ownership=ownership,
                         deadline=deadline,
                         device=device,
+                        waves=waves,
                     )
                 )
             except BaseException as why:  # kept for the owner to raise
@@ -428,12 +461,16 @@ class OverlappedPrepass:
         return self._final
 
 
-def _ownership_enabled() -> bool:
-    """Resolve --device-ownership: the port always runs the device axis,
-    so only `never` turns ownership off."""
+def _ownership_enabled(use_device: bool) -> bool:
+    """Resolve --device-ownership (auto = follow the device axis)."""
     from mythril_tpu_torch.support.support_args import args
 
-    return getattr(args, "device_ownership", "auto") != "never"
+    mode = getattr(args, "device_ownership", "auto")
+    if mode == "never":
+        return False
+    if mode == "always":
+        return True
+    return bool(use_device)
 
 
 def _outcome_owns(outcome: Optional[Dict]) -> bool:
@@ -450,6 +487,22 @@ def _outcome_owns(outcome: Optional[Dict]) -> bool:
             outcome.get("final_for_contract")
             or not (outcome.get("stats") or {}).get("partial")
         )
+    )
+
+
+def _maybe_ownable(outcome: Optional[Dict]) -> bool:
+    """Could a still-running prepass still hand this contract over?
+    False the moment a published outcome shows a hard ownership failure
+    (degraded lanes, dropped carries, saturated event bank): those gates
+    only ever get worse, so the host walk should start at once instead
+    of waiting out the prepass."""
+    if outcome is None:
+        return True  # no information yet
+    gates = outcome.get("completeness_gates") or {}
+    return (
+        gates.get("no_degraded", True)
+        and gates.get("no_carry_overflow", True)
+        and gates.get("no_event_overflow", True)
     )
 
 
@@ -592,6 +645,7 @@ def _analyze_one(
     solver_timeout: Optional[int] = None,
     disable_dependency_pruning: bool = False,
     device=None,
+    use_device: bool = True,
 ) -> Dict:
     """The host walk of one contract (SymExecWrapper + fire_lasers) on
     `device`, with the corpus prepass's outcome injected. Returns the
@@ -599,7 +653,11 @@ def _analyze_one(
     precovered_skips, wall_s, error), `issue_objects`, the `Issue`s
     the report is built from, and `static_screen`, the modules the
     static screen mounted. A walk that raises is recorded in `error`
-    with its traceback, and no issues."""
+    with its traceback, and no issues.
+
+    With `use_device` False the walk runs with `args.device_prepass`
+    and `args.device_solving` at "never" (no prepass of its own, no
+    solver race), restored on every exit path, as the JAX worker does."""
     from mythril_tpu_torch.analysis.security import fire_lasers
     from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
     from mythril_tpu_torch.ethereum.evmcontract import EVMContract
@@ -609,8 +667,12 @@ def _analyze_one(
 
     t_start = time.perf_counter()
     restore_timeout = args.solver_timeout
+    restore_device_args = (args.device_prepass, args.device_solving)
     if solver_timeout:
         args.solver_timeout = solver_timeout
+    if not use_device:
+        args.device_prepass = "never"
+        args.device_solving = "never"
     try:
         contract = EVMContract(
             code=code or "", creation_code=creation_code or "", name=name
@@ -660,6 +722,7 @@ def _analyze_one(
         }
     finally:
         args.solver_timeout = restore_timeout
+        args.device_prepass, args.device_solving = restore_device_args
 
 
 def analyze_corpus(
@@ -674,28 +737,41 @@ def analyze_corpus(
     modules: Optional[List[str]] = None,
     solver_timeout: Optional[int] = None,
     processes: Optional[int] = None,
+    use_device: Optional[bool] = None,
     disable_dependency_pruning: bool = False,
     device_budget_s: Optional[float] = None,
+    deterministic_solving: Optional[bool] = None,
     deadline_s: Optional[float] = None,
+    on_timeout: str = "partial",
     devices: Optional[int] = None,
     waves: int = PREPASS_WAVES,
     device=None,
 ) -> List[Dict]:
     """Analyze `contracts` = [(runtime_code_hex, creation_code_hex,
     name), ...]: one striped device prepass on `device` (None: the
-    card), then, contract by contract, the owned result or the host
-    walk with the contract's outcome injected. Returns one result dict
-    per contract ({name, issues, issue_objects, owned, error, complete,
-    device_prepass, ...}).
+    card), overlapped with the walks or run first (the module
+    docstring's schedule), and, contract by contract, the owned result
+    or the host walk with the contract's outcome injected. Returns one
+    result dict per contract ({name, issues, issue_objects, owned,
+    error, complete, device_prepass, ...}).
+
+    `use_device` False is the host-only leg: no prepass, and every walk
+    with the device prepass and the solver race off (ownership then
+    follows `--device-ownership`, auto meaning off); None or True runs
+    the device axis on `device`. `deterministic_solving` (None: leave
+    `args.deterministic_solving` as it is) holds for this call and is
+    restored on every exit path.
 
     With `deadline_s` (falling back to the process-global run deadline)
     an expired budget, or a SIGINT/SIGTERM under
     `resilience.graceful_shutdown()`, marks the contracts not yet walked
-    as skipped; owned contracts still report in full. `waves` caps the
-    explorer's waves a phase (tests and chip_smoke.py pass a small cap
-    so that a run does not depend on the wall clock; `device_budget_s`
-    then still applies). `processes` above 1 (the JAX package's pooled
-    walk) raises: the port walks in this process."""
+    as skipped; owned contracts still report in full; `on_timeout`
+    "fail" then raises DeadlineExpiredError instead of returning the
+    partial list. `waves` caps the explorer's waves a phase (tests and
+    chip_smoke.py pass a small cap so that a run does not depend on the
+    wall clock; `device_budget_s` then still applies). `processes` above
+    1 (the JAX package's pooled walk) raises: the port walks in this
+    process."""
     from mythril_tpu_torch.analysis.static import static_answer_enabled
     from mythril_tpu_torch.support import resilience
 
@@ -704,74 +780,107 @@ def analyze_corpus(
             "the pooled host walk (processes > 1) is not ported: the port "
             "walks the corpus in one process"
         )
+    use_device = use_device is None or bool(use_device)
     deadline = (
         resilience.run_deadline()
         if deadline_s is None
         else resilience.Deadline(deadline_s, label="corpus")
     )
-    own = _ownership_enabled()
-    # the static-answer triage tier: contracts the semantic screen
-    # settles are answered HERE (microseconds) and excluded from the
-    # device prepass, which sees their rows as non-runnable so the
-    # index mapping every consumer shares stays intact
-    static_answers = _static_triage(contracts) if static_answer_enabled() else {}
-    prepass_rows = list(contracts)
-    for i in static_answers:
-        prepass_rows[i] = ("", contracts[i][1], contracts[i][2])
-    prepass = corpus_device_prepass(
-        prepass_rows,
-        budget_s=device_budget_s,
+    own = _ownership_enabled(use_device)
+    walk_kw = dict(
+        strategy=strategy,
+        transaction_count=transaction_count,
+        execution_timeout=execution_timeout,
+        create_timeout=create_timeout,
+        max_depth=max_depth,
+        loop_bound=loop_bound,
+        modules=modules,
+        solver_timeout=solver_timeout,
+        disable_dependency_pruning=disable_dependency_pruning,
+        device=device,
+    )
+    prepass_kw = dict(
         address=address,
         transaction_count=transaction_count,
         execution_timeout=execution_timeout,
-        deadline=deadline,
-        stop_event=resilience.shutdown_event(),
-        mesh_groups=devices,
-        waves=waves,
-        device=device,
         ownership=own,
+        deadline=deadline,
+        device=device,
+        waves=waves,
     )
-    results = []
-    halt_reason = None
-    for i, (code, creation_code, name) in enumerate(contracts):
-        if i in static_answers:
-            # statically answered: the empty issue set is the analysis;
-            # it even survives a deadline halt (it costs microseconds)
-            results.append(static_answers[i])
-            continue
-        outcome = prepass.get(i)
-        if own and _outcome_owns(outcome):
-            # synthesis is cheap (no walk, no solver), so an owned
-            # contract reports in full even after a halt
-            results.append(
-                _owned_result(code, creation_code, name, outcome, address)
-            )
-            continue
-        if halt_reason is None:
-            halt_reason = resilience.interrupted_reason(deadline)
-        if halt_reason is not None:
-            results.append(_skipped_result(name, halt_reason))
-            continue
+
+    def walk(i, outcome, walk_device):
+        code, creation_code, name = contracts[i]
         result = _analyze_one(
-            code,
-            creation_code,
-            name,
-            address,
-            outcome,
-            strategy=strategy,
-            transaction_count=transaction_count,
-            execution_timeout=execution_timeout,
-            create_timeout=create_timeout,
-            max_depth=max_depth,
-            loop_bound=loop_bound,
-            modules=modules,
-            solver_timeout=solver_timeout,
-            disable_dependency_pruning=disable_dependency_pruning,
-            device=device,
+            code, creation_code, name, address, outcome,
+            use_device=walk_device, **walk_kw,
         )
         result["owned"] = False
-        results.append(result)
-    _merge_prepass_witnesses(results, contracts, prepass, address)
+        return result
+
+    with _scoped_deterministic_solving(deterministic_solving):
+        # the static-answer triage tier: contracts the semantic screen
+        # settles are answered HERE (microseconds) and excluded from the
+        # device prepass, which sees their rows as non-runnable so the
+        # index mapping every consumer shares stays intact
+        static_answers = (
+            _static_triage(contracts) if static_answer_enabled() else {}
+        )
+        prepass_rows = list(contracts)
+        for i in static_answers:
+            prepass_rows[i] = ("", contracts[i][1], contracts[i][2])
+        if use_device and len(contracts) > 1 and (
+            _effective_cpus() > 1
+            or len(_runnable_rows(prepass_rows)) >= OVERLAP_MIN_CORPUS
+        ):
+            if devices is not None and devices > 1:
+                raise NotImplementedError(
+                    "the multi-chip corpus scheduler is not ported: the "
+                    "prepass runs one engine on one card"
+                )
+            results, prepass = _overlapped_schedule(
+                contracts, prepass_rows, static_answers, own, deadline,
+                device_budget_s, prepass_kw, walk,
+            )
+        else:
+            prepass = (
+                corpus_device_prepass(
+                    prepass_rows,
+                    budget_s=device_budget_s,
+                    stop_event=resilience.shutdown_event(),
+                    mesh_groups=devices,
+                    **prepass_kw,
+                )
+                if use_device
+                else {}
+            )
+            results = []
+            halt_reason = None
+            for i, (code, creation_code, name) in enumerate(contracts):
+                resilience.inject("corpus.contract")
+                if i in static_answers:
+                    # statically answered: the empty issue set is the
+                    # analysis; it even survives a deadline halt (it
+                    # costs microseconds)
+                    results.append(static_answers[i])
+                    continue
+                outcome = prepass.get(i)
+                if own and _outcome_owns(outcome):
+                    # synthesis is cheap (no walk, no solver), so an
+                    # owned contract reports in full even after a halt
+                    results.append(
+                        _owned_result(code, creation_code, name, outcome, address)
+                    )
+                    continue
+                if halt_reason is None:
+                    halt_reason = resilience.interrupted_reason(deadline)
+                if halt_reason is not None:
+                    results.append(_skipped_result(name, halt_reason))
+                    continue
+                results.append(walk(i, outcome, use_device))
+        if prepass:
+            _merge_prepass_witnesses(results, contracts, prepass, address)
+    skipped = 0
     for i, result in enumerate(results):
         # per-contract completion status, first-class in the result
         # (and from there in the json/jsonv2 report meta)
@@ -781,7 +890,119 @@ def analyze_corpus(
         result["device_complete"] = bool(
             (prepass.get(i) or {}).get("device_complete")
         )
+        skipped += bool(result.get("skipped"))
+    if skipped and on_timeout == "fail":
+        from mythril_tpu_torch.exceptions import DeadlineExpiredError
+
+        raise DeadlineExpiredError(
+            f"{skipped}/{len(contracts)} contract(s) unanalyzed at the "
+            "deadline (--on-timeout=fail)"
+        )
     return results
+
+
+@contextmanager
+def _scoped_deterministic_solving(value: Optional[bool]):
+    """`args.deterministic_solving` set to `value` inside (None: left as
+    it is) and restored on every exit path."""
+    from mythril_tpu_torch.support.support_args import args
+
+    restore = args.deterministic_solving
+    if value is not None:
+        args.deterministic_solving = value
+    try:
+        yield
+    finally:
+        args.deterministic_solving = restore
+
+
+def _overlapped_schedule(
+    contracts, prepass_rows, static_answers, own, deadline, device_budget_s,
+    prepass_kw, walk,
+) -> Tuple[List[Dict], Dict[int, Dict]]:
+    """The JAX package's overlapped single-process schedule: the prepass
+    on its own thread (`OverlappedPrepass`) while this thread walks the
+    contracts smallest code first. A walk that starts while the prepass
+    runs gets its latest published outcome with the card off; a
+    contract the running prepass may still own is deferred rather than
+    walked; past the overlap window (1.25x the prepass budget, 2x from
+    OVERLAP_MIN_CORPUS rows) one drain lets the prepass finish alone.
+    Returns (results in corpus order, the final outcomes)."""
+    from mythril_tpu_torch.support import resilience
+
+    execution_timeout = prepass_kw["execution_timeout"]
+    address = prepass_kw["address"]
+    pre = OverlappedPrepass(prepass_rows, budget_s=device_budget_s, **prepass_kw)
+    # smallest code first: cheap walks soak up the prepass's busy
+    # window, so the budget-bound heavyweights run after it finishes,
+    # uncontended and with the FINAL outcome
+    order = sorted(range(len(contracts)), key=lambda i: len(contracts[i][0]))
+    n_run = max(1, len(_runnable_rows(prepass_rows)))
+    overlap_window_s = (
+        2.0 if n_run >= OVERLAP_MIN_CORPUS else 1.25
+    ) * (
+        device_budget_s
+        if device_budget_s is not None
+        else resolve_prepass_budget_s(n_run, execution_timeout, ownership=own)
+    )
+    t_overlap = time.perf_counter()
+    slots: List[Optional[Dict]] = [None] * len(contracts)
+    halt_reason: Optional[str] = None
+    try:
+        pending = list(order)
+        while pending:
+            progressed = False
+            deferred: List[int] = []
+            for i in pending:
+                # the supervisor boundary: an expired deadline or a
+                # delivered signal stops LAUNCHING work
+                resilience.inject("corpus.contract")
+                if halt_reason is None:
+                    halt_reason = resilience.interrupted_reason(deadline)
+                code, creation_code, name = contracts[i]
+                if i in static_answers:
+                    slots[i] = static_answers[i]
+                    progressed = True
+                    continue
+                if halt_reason is not None:
+                    slots[i] = _skipped_result(name, halt_reason)
+                    progressed = True
+                    continue
+                if time.perf_counter() - t_overlap > overlap_window_s:
+                    pre.drain()
+                outcome, device_ok = pre.outcome_for(i)
+                if own and _outcome_owns(outcome):
+                    # device-complete contract: the evidence IS the
+                    # analysis; no walk, no lock, no solver
+                    slots[i] = _owned_result(
+                        code, creation_code, name, outcome, address
+                    )
+                    progressed = True
+                    continue
+                if (
+                    not device_ok
+                    and own
+                    and _maybe_ownable(outcome)
+                    and not pre.drain_abandoned
+                ):
+                    # a hung prepass (abandoned drain) never publishes
+                    # finality: deferring past it would spin forever
+                    deferred.append(i)
+                    continue
+                with pre.lock:
+                    slots[i] = walk(i, outcome, device_ok)
+                pre.yield_lock()
+                progressed = True
+            pending = deferred
+            if pending and not progressed:
+                # only deferred work left: let the prepass run alone and
+                # poll its published finality
+                time.sleep(1.0)
+    finally:
+        # an exception (a caller's deadline included) must not orphan
+        # the prepass thread mid-wave; a prepass that raised raises here
+        prepass = pre.finish()
+    return slots, prepass
 
 
 def _merge_prepass_witnesses(

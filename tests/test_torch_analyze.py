@@ -157,16 +157,19 @@ def pinned():
 
 
 def port_analyze(name):
+    """The port's analyze_corpus on CORPORA[name], on the single-CPU
+    schedule (prepass first) that the JAX pin was taken on."""
     rows, enum = CORPORA[name]
-    saved = port_portfolio.device_solve_batch
+    saved = port_portfolio.device_solve_batch, port_corpus._effective_cpus
     if enum:
         port_portfolio.device_solve_batch = enum_only_solver(port_portfolio, device="cpu")
+    port_corpus._effective_cpus = lambda: 1
     try:
         return port_corpus.analyze_corpus(
             rows, transaction_count=2, execution_timeout=30, waves=WAVES,
             device_budget_s=NO_BUDGET, device="cpu")
     finally:
-        port_portfolio.device_solve_batch = saved
+        port_portfolio.device_solve_batch, port_corpus._effective_cpus = saved
 
 
 @pytest.fixture(scope="module")

@@ -13,7 +13,9 @@ blockjit.py and the substep wrapper's plain version), a one-contract
 form (analysis/), the analyzer facade
 (mythril/: `MythrilDisassembler`, `MythrilAnalyzer.fire_lasers` over a
 two-contract corpus with its overlapped prepass, `dump_statespace`, and
-the `disassemble` and `function-to-hash` commands), a query
+the `disassemble` and `function-to-hash` commands), the corpus synthesis,
+the golden host-only leg (`golden_corpus_run`), the dispatcher probe,
+the hybrid fuzzer and `analyze_corpus`'s overlapped schedule, a query
 through the host solver stack (`get_model`: the bit-blaster and the
 CDCL of the port's own g++ library), the host walk of a contract under
 `--device-ownership never` (the LASER engine, its plugins and the
@@ -135,6 +137,21 @@ with contextlib.redirect_stdout(cmd_out):
     assert cli.main(["disassemble", "--bin-runtime", "-c", "33ff"]) == 0
     assert cli.main(["function-to-hash", "transfer(address,uint256)"]) == 0
 assert cmd_out.getvalue() == "Runtime Disassembly: \n0 CALLER\n1 SUICIDE\n\n0xa9059cbb\n", cmd_out
+from mythril_tpu_torch.analysis import corpusgen, dispatcher_probe, goldens, hybrid_fuzz
+assert len(corpusgen.synth_bench_corpus(32)) == 32
+((gold_name, gold),) = goldens.golden_corpus_run(["suicide.sol"])
+assert gold["complete"] and gold["device_prepass"] is None, gold
+assert [i["swc-id"] for i in gold["issues"]] == ["106"], gold["issues"]
+probe_rows = dispatcher_probe.probe_dispatcher("600035600757005bfe", device="cpu")
+assert probe_rows[0]["function"] == "<empty calldata>", probe_rows
+fuzzed = hybrid_fuzz.HybridFuzzer("600035604214600a57005bfe", calldata_len=32,
+                                  lanes_per_generation=4, max_generations=3, seed=2,
+                                  device="cpu").run()
+assert fuzzed["triggers"]["assert-violation"], fuzzed
+corpus._effective_cpus = lambda: 2  # the overlapped schedule
+overlapped = corpus.analyze_corpus([("604260003560f81c14600d57005b33ff", "", "g"),
+                                    ("600035600757005bfe", "", "a")], waves=2, device="cpu")
+assert sorted(i["swc-id"] for r in overlapped for i in r["issues"]) == ["106", "110"], overlapped
 import os
 from mythril_tpu_torch.laser.smt import ULT, symbol_factory
 from mythril_tpu_torch.support.model import get_model
@@ -228,7 +245,7 @@ def test_entry_points_without_device_raise_where_no_cuda():
     from mythril_tpu_torch.laser.conformance import run_cases
     from mythril_tpu_torch.laser import flip_frontier
     from mythril_tpu_torch.laser.batch import explore
-    from mythril_tpu_torch.analysis import corpus, replay
+    from mythril_tpu_torch.analysis import corpus, dispatcher_probe, hybrid_fuzz, replay
     from mythril_tpu_torch.interfaces import cli
     from mythril_tpu_torch.mythril import MythrilAnalyzer, MythrilDisassembler
     from mythril_tpu_torch.laser.smt import terms as T
@@ -254,6 +271,9 @@ def test_entry_points_without_device_raise_where_no_cuda():
                  lambda: explore.DeviceCorpusExplorer(["33ff"]),
                  lambda: explore.DeviceSymbolicExplorer("33ff"),
                  lambda: corpus.analyze_corpus([("33ff33ff", "", "k")]),
+                 lambda: corpus.analyze_corpus([("33ff33ff", "", "k"), ("33ff33ff", "", "j")]),
+                 lambda: dispatcher_probe.probe_dispatcher("33ff"),
+                 lambda: hybrid_fuzz.HybridFuzzer("33ff"),
                  lambda: replay.replay_sequence({"steps": []}, 0),
                  lambda: cli.main(["analyze", "--bin-runtime", "-c", "33ff33ff"]),
                  lambda: MythrilAnalyzer(MythrilDisassembler()),

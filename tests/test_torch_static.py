@@ -522,6 +522,7 @@ def test_triage_answers_the_clean_contract(monkeypatch):
     contracts = [(corpusgen.clean_contract(0), "", "Clean"), ("33ff", "", "Killable")]
     monkeypatch.setattr(port_args, "deterministic_solving", True)
     monkeypatch.setattr(port_args, "sprint_cap_s", 0.0)
+    monkeypatch.setattr(port_corpus, "_effective_cpus", lambda: 1)  # prepass first
     prepass_rows = []
     real = port_corpus.corpus_device_prepass
 
