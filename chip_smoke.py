@@ -25,6 +25,9 @@
     python3 chip_smoke.py --probes          # device, build, the kernel
                                             # phases, then only the probes
                                             # phase (9c)
+    python3 chip_smoke.py --store           # device, build, the kernel
+                                            # phases, then only the store
+                                            # phase (9d)
     python3 chip_smoke.py --ab-overlap      # device, build, the kernel
                                             # phases, then the 13 vendored
                                             # contracts through `analyze`:
@@ -54,7 +57,7 @@
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 non-zero (nothing is caught). They run one at a time, each alone on
-the card, in the order 1-12 (5b after 5, 9b and 9c after 9); 9 runs (b),
+the card, in the order 1-12 (5b after 5, 9b, 9c and 9d after 9); 9 runs (b),
 (a) (a process of its own), the command-line checks (through the
 analyzer facade, in this process, one at a time) and the wrapper's own
 prepass. Phase 10's plain portfolio_sls references (CPU only) are
@@ -286,7 +289,11 @@ phase 10 collects them; the worker is ended on every exit.
    defaults' jobs, waves, wall per wave, max jobs resident, seconds to
    ready and to the first report, job latency p50 and max, the same
    numbers of the pipelined run under `pipelined`, the schedules'
-   walls and the idle share;
+   walls and the idle share. Last, `serve --store`: KILLABLE submitted
+   twice to a server at serve's defaults with a fresh verdict store; the
+   first job runs its waves and walk and writes back, the repeat must
+   settle DONE at admission from the banked verdict with no wave and no
+   kernel launch (`launches_serve_store_hit`, 0 for every kernel);
 9c. probes: probe_dispatcher (analysis/dispatcher_probe.py) on each of
    the 13 vendored contracts on the card, every row equal to the JAX
    package's (tests/test_torch_probes_pinned.json); HybridFuzzer
@@ -307,6 +314,25 @@ phase 10 collects them; the worker is ended on every exit.
    the overlapped schedule (this host has more than one CPU; one
    OverlappedPrepass on the card), the issue set (SWC, address, title)
    equal to the JAX facade's overlapped run;
+9d. store (store/, analysis/static/linkset.py): analyze_corpus on the
+   card, prepass first, the explorer capped at STORE_WAVES waves a phase
+   with no wall budget, into a fresh verdict store, three runs of
+   store_corpus(): cold (fork_contract(0, 0) and (1, 0),
+   deadweight_contract(0), proxy_pair(seed=5, variant=0)), warm (the
+   bases byte for byte, the one-selector fork fork_contract(0, 1),
+   HASHKILL, new, whose SHA3 lanes launch the sponge in the masked
+   prepass (no other row runs SHA3), and proxy_pair(seed=5, variant=1):
+   the same proxy bytes before a new implementation) and third (the
+   warm rows again). Every run, per row, equal to the JAX package's
+   run of the same rows and arguments (tests/test_torch_store_pinned.json:
+   issues (SWC, address, title), store_hit, store_incremental, the plans'
+   changed and unchanged selectors, link, link_run without its wall
+   time), every row complete; the warm run's masked prepass (selectors
+   masked in the explorer) must launch keccak_sponge and a substep
+   kernel, the third must settle every row as an exact hit and launch
+   nothing. Then `python -m mythril_tpu_torch graph --json` on both proxy
+   pairs, each payload but its wall time equal to the JAX `myth graph
+   --json` one pinned;
 10. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
    own programs (the search also on the cube fan's first CUBE_CHECK_Q;
    all of them are timed), on queries the
@@ -341,7 +367,9 @@ phase 10 collects them; the worker is ended on every exit.
    analyze, the vendored walks of analyze (b), the race gate's walk,
    solver, serve, the facade's `-c` runs and its corpus run, and 9c's
    `launches_probe`, `launches_fuzz`, `launches_host_only` (all 0) and
-   `launches_corpus_overlap`; for fused_substep and block_substep also
+   `launches_corpus_overlap`; 9d's `launches_store_cold`, `launches_store`
+   (the warm run) and `launches_store_hit` (the third run, all 0), and
+   9b's `launches_serve_store_hit` (all 0); for fused_substep and block_substep also
    `launches_spec_wave`, the 5b wave of their mode), then the result
    line. Before it, `[phases]` prints each phase's seconds and the
    seconds the worker took off phase 10 beside the probes phase's.
@@ -4493,7 +4521,9 @@ def phase_serve(card):
     out["schedules"] = serve_schedules(card)
     serve_cli(card)
     out["idle_share_one_wave"] = serve_profile(card)
-    return {"serve": out, "launches": launches}
+    stored = serve_store(card)
+    out["store_repeat_admit_ms"] = stored["admit_ms"]
+    return {"serve": out, "launches": launches, "launches_store_hit": stored["launches"]}
 
 
 # phase 9c: the concrete probes (analysis/dispatcher_probe.py,
@@ -4766,6 +4796,200 @@ def phase_probes(card):
                        "host_only": out["host_only"]["launches"],
                        "corpus_overlap": out["corpus_overlap"]["launches"]}
     return out
+
+
+# phase 9d: the verdict store (store/) and the corpus linker
+# (analysis/static/linkset.py) behind analyze_corpus, serve and graph
+#: the JAX package's store runs and graph payloads (tests/test_torch_store.py
+#: --pin-store)
+STORE_PIN = ROOT / "tests" / "test_torch_store_pinned.json"
+#: the explorer's waves a phase in the store runs (no wall budget: the cap
+#: alone ends each phase, so a run does not hang on the clock)
+STORE_WAVES = 4
+#: analyze_corpus's arguments in the store runs, the pin's too: the walk's
+#: budget is one it cannot miss on these contracts, and solving is
+#: deterministic
+STORE_KW = dict(transaction_count=2, execution_timeout=600, deterministic_solving=True)
+
+
+def store_corpus():
+    """The store runs' rows: cold (two one-selector-fork bases, the
+    deadweight contract, an EIP-1967 proxy and its implementation), warm
+    (every base byte for byte, a one-selector fork of base0, HASHKILL,
+    new, so that the warm prepass runs SHA3 lanes (no other row executes
+    SHA3), and the same proxy bytes in front of a new implementation at
+    the same address), and third (the warm rows again)."""
+    from mythril_tpu_torch.analysis.corpusgen import (
+        deadweight_contract,
+        fork_contract,
+        proxy_pair,
+    )
+
+    bases = [(fork_contract(0, 0), "", "base0"), (fork_contract(1, 0), "", "base1"),
+             (deadweight_contract(0), "", "deadweight")]
+    cold = bases + proxy_pair(seed=5, variant=0)
+    warm = bases + [(fork_contract(0, 1), "", "fork0"), (HASHKILL, "", "hashkill")] + \
+        proxy_pair(seed=5, variant=1)
+    return {"cold": cold, "warm": warm, "third": warm}
+
+
+def store_summary(results):
+    """Per row what the store runs are held to: [name, store_hit,
+    store_incremental, changed selectors, unchanged selectors, issues
+    (SWC, address, title), link meta, link_run (without its wall time)]."""
+    rows = []
+    for r in results:
+        plan = r.get("store") or {}
+        run = dict(r.get("link_run") or {})
+        run.pop("wall_ms", None)
+        rows.append([r["name"], bool(r.get("store_hit")), bool(r.get("store_incremental")),
+                     plan.get("changed_selectors"), plan.get("unchanged_selectors"),
+                     sorted([i["swc-id"], i["address"], i["title"]] for i in r["issues"]),
+                     r.get("link"), run])
+    return json.loads(json.dumps(rows))
+
+
+def graph_payload(payload):
+    """A `graph --json` payload without its wall time."""
+    payload = json.loads(json.dumps(payload))
+    payload["stats"].pop("wall_ms", None)
+    return payload
+
+
+def store_graph(card, pin):
+    """`python -m mythril_tpu_torch graph --json` on the store runs' two
+    proxy pairs (the files named as `graph DIR` reads them), each payload
+    equal to the JAX `myth graph --json` one pinned."""
+    import tempfile
+
+    from mythril_tpu_torch.analysis.corpusgen import proxy_pair
+
+    for variant in (0, 1):
+        with tempfile.TemporaryDirectory() as tmp:
+            for code, _creation, name in proxy_pair(seed=5, variant=variant):
+                Path(tmp, name.replace("#", "_") + ".hex").write_text(code)
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "mythril_tpu_torch", "graph", tmp,
+                                  "--json"], capture_output=True, text=True, cwd=ROOT,
+                                 timeout=120)
+            secs = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise SystemExit(f"graph --json exited {out.returncode}: {out.stderr[-2000:]}")
+        got = graph_payload(json.loads(out.stdout))
+        want = pin["graph"][f"proxy_pair_5_{variant}"]
+        log(f"[store] graph --json on proxy_pair(seed=5, variant={variant}): {secs:.3f} s, "
+            f"{got['stats']}; equal to the JAX payload: {got == want}")
+        if got != want:
+            raise SystemExit(f"graph --json on proxy_pair(5, {variant}) differs from the JAX "
+                             f"payload: {got} != {want}")
+
+
+def phase_store(card):
+    """9d: analyze_corpus on the card into a fresh verdict store, three
+    runs (cold, warm, third: store_corpus) prepass-first (the pin's
+    schedule), each held to the JAX package's run of the same rows and
+    arguments (STORE_PIN: issues, store_hit, store_incremental, the plans'
+    selectors, link and link_run); the warm run's masked prepass must
+    launch keccak_sponge and a substep kernel, the third must settle every
+    row as an exact hit and launch nothing. Then `graph --json`."""
+    import tempfile
+
+    from mythril_tpu_torch.analysis import corpus
+    from mythril_tpu_torch.laser.smt.solver import device_race
+    from mythril_tpu_torch.store import close_stores
+
+    pin = json.loads(STORE_PIN.read_text())
+    runs = store_corpus()
+    out = {"launches": {}, "seconds": {}}
+    cpus = corpus._effective_cpus
+    corpus._effective_cpus = lambda: 1
+    try:
+        with tempfile.TemporaryDirectory() as store_dir:
+            for name, rows in runs.items():
+                reset_launches()
+                t0 = time.perf_counter()
+                results = corpus.analyze_corpus(rows, store_dir=store_dir, waves=STORE_WAVES,
+                                                device_budget_s=float("inf"), **STORE_KW)
+                device_race.wait_idle()
+                sync()
+                secs = time.perf_counter() - t0
+                launches = read_launches()
+                got = store_summary(results)
+                masked = max(((r.get("device_prepass") or {}).get("store_masked_selectors") or 0)
+                             for r in results)
+                log(f"[store] {name} run: {secs:.3f} s; rows {[g[:5] for g in got]}; "
+                    f"masked selectors {masked}; complete "
+                    f"{[r['complete'] for r in results]}; launches {launches} on {card}")
+                out["launches"][name], out["seconds"][name] = launches, round(secs, 3)
+                if got != pin["runs"][name]:
+                    bad = [(g, w) for g, w in zip(got, pin["runs"][name]) if g != w]
+                    raise SystemExit(f"the {name} store run differs from the JAX pin: {bad}")
+                if not all(r["complete"] for r in results):
+                    raise SystemExit(f"the {name} store run left rows incomplete")
+                if name == "warm" and not (
+                        masked and launches["keccak_sponge"]
+                        and launches["fused_substep"] + launches["block_substep"]):
+                    raise SystemExit(f"the warm store run's masked prepass (masked selectors "
+                                     f"{masked}) did not launch the sponge and a substep "
+                                     f"kernel: {launches}")
+                if name == "third" and any(launches.values()):
+                    raise SystemExit(f"exact store hits launched kernels: {launches}")
+    finally:
+        corpus._effective_cpus = cpus
+        close_stores()
+    store_graph(card, pin)
+    return out
+
+
+def serve_store(card):
+    """`serve --store`: one job (KILLABLE) submitted twice to a server at
+    serve's defaults with a fresh store; the first runs its waves and walk
+    and writes back, the second must settle DONE at admission with the
+    banked issues, no wave and no launch."""
+    import tempfile
+
+    from mythril_tpu_torch.service.client import ServiceClient
+    from mythril_tpu_torch.service.engine import ServiceConfig
+    from mythril_tpu_torch.service.server import AnalysisServer
+    from mythril_tpu_torch.store import close_stores
+
+    with tempfile.TemporaryDirectory() as store_dir:
+        srv = AnalysisServer(ServiceConfig(store_dir=store_dir, **SERVE_DEFAULTS)).start()
+        try:
+            client = ServiceClient(srv.url)
+            first = client.report(client.submit(KILLABLE), wait_s=SERVE_READY_S)
+            # the write-back follows the settle on the engine's loop thread
+            t0 = time.perf_counter()
+            while (client.stats()["store"]["writebacks"] < 1
+                   and time.perf_counter() - t0 < SERVE_READY_S):
+                time.sleep(0.01)
+            sync()
+            before = client.stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            job_id = client.submit(KILLABLE)
+            state = srv.engine.queue.get(job_id).state
+            admit_s = time.perf_counter() - t0
+            second = client.report(job_id, wait_s=SERVE_READY_S)
+            sync()
+            launches = read_launches()
+            after = client.stats()
+        finally:
+            srv.close()
+            close_stores()
+    report = second.get("report") or {}
+    issues = [sorted((i["swc-id"], i["address"]) for i in (job.get("report") or {})["issues"])
+              for job in (first, second)]
+    log(f"[serve] --store: first job {first['state']} ({before['store']['writebacks']} "
+        f"write-back), the repeat {state} at admission in {admit_s * 1e3:.3f} ms, store_hit "
+        f"{report.get('store_hit')}, waves {before['waves']['count']} -> "
+        f"{after['waves']['count']}, issues {issues}, launches {launches} on {card}")
+    if (before["store"]["writebacks"] != 1 or state != "done" or not report.get("store_hit")
+            or after["waves"]["count"] != before["waves"]["count"] or any(launches.values())
+            or issues[0] != issues[1] or after["store"]["answered"] != 1):
+        raise SystemExit("serve --store: the repeat did not settle at admission from the "
+                         "banked verdict with no wave and no launch")
+    return {"admit_ms": round(admit_s * 1e3, 6), "launches": launches}
 
 
 def phase_bignum(card):
@@ -5365,6 +5589,13 @@ def main() -> int:
     if args == ["--ab-overlap"]:
         ab_overlap(card)
         return 0
+    if args == ["--store"]:
+        t0 = time.perf_counter()
+        store = phase_store(card)
+        store["launches"]["serve_store_hit"] = serve_store(card)["launches"]
+        log(f"[store] {time.perf_counter() - t0:.1f} s in all")
+        print(json.dumps(store["launches"]))
+        return 0
     if args == ["--probes"]:
         t0 = time.perf_counter()
         probes = phase_probes(card)
@@ -5411,6 +5642,7 @@ def full_run(kind, card, kern, host_us, refs) -> int:
     phase("analyze wrapper", wrapper_prepass, card)
     serve = phase("serve", phase_serve, card)
     probes = phase("probes", phase_probes, card)
+    store = phase("store", phase_store, card)
     kern.update(phase("portfolio kernels", phase_portfolio_kernels, card, flip["programs"],
                       flip["solving"], refs))
     phase("engine differential", phase_engine_differential, card)
@@ -5457,6 +5689,11 @@ def full_run(kind, card, kern, host_us, refs) -> int:
         "launches_facade": facade["launches"][name],
         "launches_facade_corpus": facade["launches_corpus"][name],
         **{f"launches_{path}": spent[name] for path, spent in probes["launches"].items()},
+        # 9d: the store runs (the warm run's masked prepass; exact hits: 0)
+        "launches_store_cold": store["launches"]["cold"][name],
+        "launches_store": store["launches"]["warm"][name],
+        "launches_store_hit": store["launches"]["third"][name],
+        "launches_serve_store_hit": serve["launches_store_hit"][name],
         **({"launches_many": main_path["launches"]["slot_write_many"],
             "launches_many_symbolic_wave": sym_wave["launches"]["slot_write_many"],
             "launches_many_explore": explore["launches"]["slot_write_many"],

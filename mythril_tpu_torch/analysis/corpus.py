@@ -23,6 +23,16 @@ host-only leg (no prepass, every walk under `device_prepass` and
 `deterministic_solving` is scoped to the call; `on_timeout="fail"`
 raises DeadlineExpiredError when a contract was skipped.
 
+The corpus tiers run before the prepass, as in the JAX package: the
+corpus link pass (analysis/static/linkset.py `link_corpus`, whenever
+static pruning is on), the verdict store's triage (store/: exact
+(codehash, config-fingerprint) hits settle at once, near-duplicate forks
+and callee upgrades behind unchanged code get an `IncrementalPlan`,
+whose selector masks reach the explorer through `corpus_device_prepass`
+and `OverlappedPrepass`), then the static-answer triage. After the
+walks, every complete full analysis writes its verdict back, and every
+linked result carries the link pass's `link` and `link_run` blocks.
+
 Where the port differs, and how it says so:
 
 - `use_device=None` means the card (`device`, None: the card, which
@@ -34,12 +44,23 @@ Where the port differs, and how it says so:
   contract is `complete: False`, as in the JAX package;
 - the multi-chip scheduler (`mesh_groups > 1`) raises, as the explorer's
   other unported options do;
-- the pooled walk (`processes > 1`) raises; the verdict store (and with
-  it the selector masks), the corpus link pass and the routing triage
-  are not ported and have no switch here;
+- the pooled walk (`processes > 1`) raises, and the routing triage (the
+  JAX `router_dir`/`router` arguments) is not ported and has no switch
+  here;
+- a store that cannot be opened or read, and a verdict that cannot be
+  written back, are recorded in the DegradationLog (`store-unavailable`,
+  `store-writeback-failed`), where the JAX package only logs them; the
+  contract takes the full path, and the analysis stands, as in the JAX
+  package. A link pass that raises is recorded `static-prepass-failed`
+  (site `corpus-link`) and the corpus runs unlinked, as in the JAX
+  package;
+- a store hit's result, and an incremental result's banked issues, also
+  carry their `Issue`s in `issue_objects` (rebuilt from the banked
+  dicts), as every port result does;
 - `OverlappedPrepass`, the corpus prepass on a thread of its own beside
   the walks (here and in the analyzer facade, mythril/mythril_analyzer.py),
-  is the JAX one, with two departures: an exception in the prepass
+  is the JAX one (the store's selector masks included), with two
+  departures: an exception in the prepass
   thread is kept and re-raised (by `outcome_for`, `drain` and `finish`,
   after the PREPASS_FAILED record), where the JAX `finish` returns no
   outcomes and the walks go on without the card; and a drain or finish
@@ -172,6 +193,7 @@ def corpus_device_prepass(
     waves: int = PREPASS_WAVES,
     device=None,
     ownership: bool = True,
+    selector_masks: Optional[Dict[int, Tuple]] = None,
 ) -> Dict[int, Dict]:
     """One striped device exploration over the corpus, on `device`
     (None: the card); returns {contract_index: single-contract prepass
@@ -180,6 +202,10 @@ def corpus_device_prepass(
     `host_lock`, `publish` and `lock_wanted` are the overlapped mode's
     (`OverlappedPrepass`): `publish(contract_index, outcome)` receives
     every track's outcome after each wave.
+
+    `selector_masks` ({contract index: (unchanged selector bytes, entry
+    directions)}, store/) restricts those contracts' exploration to their
+    CHANGED functions: the verdict store's incremental tier.
 
     The geometry is the JAX package's: calldata the longest
     `required_calldata_len`, ROOMY_CAPS and 32 lanes a contract below
@@ -216,6 +242,13 @@ def corpus_device_prepass(
         if publish is None
         else (lambda ti, outcome: publish(runnable[ti][0], outcome))
     )
+    # contract-index masks as track indices (the explorer sees only the
+    # runnable rows)
+    track_masks = {
+        ti: selector_masks[idx]
+        for ti, (idx, _code) in enumerate(runnable)
+        if idx in (selector_masks or {})
+    } or None
     try:
         explorer = DeviceCorpusExplorer(
             [code for _, code in runnable],
@@ -233,6 +266,7 @@ def corpus_device_prepass(
             publish=translate,
             deadline=deadline,
             device=device,
+            selector_masks=track_masks,
         )
         if lock_wanted is not None:
             explorer.lock_wanted = lock_wanted
@@ -295,9 +329,10 @@ class OverlappedPrepass:
     re-raise the thread's exception once it is known (the exploration's
     failure is recorded PREPASS_FAILED by `corpus_device_prepass`), and a
     drain or finish that gives up on a hung thread is recorded in the
-    DegradationLog (`prepass-drain-timed-out`). The JAX mesh and
-    selector-mask arguments are left out (neither is ported); `waves`
-    caps the explorer's waves a phase, as `analyze_corpus(waves=)` does."""
+    DegradationLog (`prepass-drain-timed-out`). The JAX mesh argument is
+    left out (the mesh is not ported); `selector_masks` are the verdict
+    store's, as in the JAX package; `waves` caps the explorer's waves a
+    phase, as `analyze_corpus(waves=)` does."""
 
     def __init__(
         self,
@@ -310,6 +345,7 @@ class OverlappedPrepass:
         deadline=None,
         device=None,
         waves: int = PREPASS_WAVES,
+        selector_masks: Optional[Dict[int, Tuple]] = None,
     ) -> None:
         import threading
 
@@ -342,6 +378,7 @@ class OverlappedPrepass:
                         deadline=deadline,
                         device=device,
                         waves=waves,
+                        selector_masks=selector_masks,
                     )
                 )
             except BaseException as why:  # kept for the owner to raise
@@ -592,12 +629,17 @@ def _static_triage(contracts: List[Tuple[str, str, str]]) -> Dict[int, Dict]:
     keeps that contract on the full path and is recorded
     (`static-prepass-failed`)."""
     from mythril_tpu_torch.analysis.static import summary_for
+    from mythril_tpu_torch.observe.registry import registry
     from mythril_tpu_torch.support.resilience import (
         DegradationLog,
         DegradationReason,
     )
 
     out: Dict[int, Dict] = {}
+    counter = registry().counter(
+        "mtpu_static_answered_total",
+        "contracts settled by the static-answer triage tier",
+    )
     for i, (code, creation_code, name) in enumerate(contracts):
         if creation_code:
             # a deploying row executes creation code too: the
@@ -613,6 +655,7 @@ def _static_triage(contracts: List[Tuple[str, str, str]]) -> Dict[int, Dict]:
                 out[i] = _static_answer_result(
                     name, summary, time.perf_counter() - t0
                 )
+                counter.inc()
         except Exception as why:
             DegradationLog().record(
                 DegradationReason.STATIC_PREPASS_FAILED,
@@ -627,6 +670,369 @@ def _static_triage(contracts: List[Tuple[str, str, str]]) -> Dict[int, Dict]:
             len(contracts),
         )
     return out
+
+
+def _issue_objects(code: str, rows: List[Dict]) -> list:
+    """`Issue`s rebuilt from banked issue dicts (a store entry's), so a
+    store-settled result carries `issue_objects` as every port result
+    does; their `as_dict` gives the banked dicts back."""
+    from mythril_tpu_torch.analysis.report import Issue
+
+    out = []
+    for row in rows:
+        head, _, tail = (row.get("description") or "").partition("\n")
+        issue = Issue(
+            contract=row.get("contract"),
+            function_name=row.get("function"),
+            address=row.get("address"),
+            swc_id=row.get("swc-id"),
+            title=row.get("title"),
+            bytecode=code,
+            gas_used=(row.get("min_gas_used"), row.get("max_gas_used")),
+            severity=row.get("severity"),
+            description_head=head,
+            description_tail=tail,
+            transaction_sequence=row.get("tx_sequence"),
+        )
+        issue.source_mapping = row.get("sourceMap")
+        issue.filename = row.get("filename")
+        issue.lineno = row.get("lineno")
+        issue.code = row.get("code")
+        issue.provenance = row.get("provenance")
+        out.append(issue)
+    return out
+
+
+def _store_hit_result(name: str, code: str, entry, wall_s: float) -> Dict:
+    """The result slot for an exact verdict-store hit: the banked issue
+    set IS the analysis (no device wave, no host walk, no solver). Same
+    shape as an analyzed result; the `store_hit` flag marks it."""
+    return {
+        "name": name,
+        "issues": entry.issues,
+        "issue_objects": _issue_objects(code, entry.issues),
+        "states": 0,
+        "device_prepass": None,
+        "phases": {},
+        "precovered_skips": 0,
+        "wall_s": round(wall_s, 6),
+        "owned": False,
+        "error": None,
+        "store_hit": True,
+        "store": {
+            "code_hash": entry.code_hash,
+            "config_fingerprint": entry.config_fp,
+            "provenance": entry.provenance,
+        },
+    }
+
+
+def _store_triage(
+    contracts: List[Tuple[str, str, str]],
+    vstore,
+    config_fp: str,
+    linkset=None,
+) -> Tuple[Dict[int, Dict], Dict[int, object]]:
+    """({index: exact-hit result}, {index: IncrementalPlan}) from the
+    verdict store (store/). Runs BEFORE the static triage and the device
+    prepass, so hit contracts never occupy a lane and incremental
+    contracts explore only their changed selectors. Every doubt bails
+    that contract to the full path: a store problem can cost speed,
+    never correctness.
+
+    With a corpus `linkset`, an exact codehash hit is also checked
+    against its stored CALL-GRAPH fingerprints: byte-identical code
+    whose resolved callee closure moved (an implementation upgrade
+    behind an unchanged proxy) is NOT served the stale verdict; it
+    downgrades to a linked incremental plan re-analyzing only the
+    selectors whose closure changed, or to full analysis when the
+    linked diff cannot be trusted (link-unresolved / link-cycle). A
+    lookup that raises is recorded `store-unavailable`."""
+    answers: Dict[int, Dict] = {}
+    plans: Dict[int, object] = {}
+    if vstore is None:
+        return answers, plans
+    from mythril_tpu_torch.analysis.static import static_prune_enabled, summary_for
+    from mythril_tpu_torch.store import (
+        IncrementalBail,
+        code_hash_hex,
+        plan_incremental,
+    )
+    from mythril_tpu_torch.support.resilience import (
+        DegradationLog,
+        DegradationReason,
+    )
+
+    for i, (code, creation_code, name) in enumerate(contracts):
+        if creation_code:
+            # a deploying row executes creation code too: the
+            # runtime-keyed verdict does not cover it
+            continue
+        norm = code[2:] if code.startswith("0x") else code
+        if len(norm) < 8:
+            continue
+        t0 = time.perf_counter()
+        code_hash = code_hash_hex(norm)
+        try:
+            entry = vstore.get(code_hash, config_fp)
+        except Exception as why:
+            DegradationLog().record(
+                DegradationReason.STORE_UNAVAILABLE,
+                site="corpus-store",
+                detail=f"{type(why).__name__}: {why}; full path",
+                contract=name,
+            )
+            continue
+        if entry is not None:
+            if linkset is not None and entry.linked_fingerprints:
+                verdict = _linked_hit_verdict(norm, name, entry, linkset, config_fp)
+                if verdict == "stale":
+                    continue  # full analysis; serving the hit is wrong
+                if verdict is not None:
+                    plans[i] = verdict
+                    continue
+            answers[i] = _store_hit_result(name, norm, entry, time.perf_counter() - t0)
+            continue
+        if not static_prune_enabled():
+            continue  # the diff needs the static layer's fingerprints
+        try:
+            summary = summary_for(norm, config_fp=config_fp)
+            nearest = vstore.nearest(
+                config_fp,
+                summary.function_fingerprints,
+                exclude_code_hash=code_hash,
+            )
+            if nearest is None:
+                continue
+            plans[i] = plan_incremental(summary, nearest)
+            log.info(
+                "Store incremental plan for %s: %d changed / %d "
+                "unchanged selector(s), %d banked issue(s)",
+                name,
+                len(plans[i].changed),
+                len(plans[i].unchanged),
+                len(plans[i].banked_issues),
+            )
+        except IncrementalBail as bail:
+            log.info(
+                "Store incremental bail for %s: %s (full analysis)",
+                name,
+                bail.reason,
+            )
+        except Exception:
+            log.warning(
+                "store incremental planning failed for %s; full analysis",
+                name,
+                exc_info=True,
+            )
+    if answers:
+        log.info(
+            "Verdict store settled %d/%d contract(s) at admission",
+            len(answers),
+            len(contracts),
+        )
+    return answers, plans
+
+
+def _linked_hit_verdict(norm: str, name: str, entry, linkset, config_fp: str):
+    """Check an exact store hit against its call-graph fingerprints.
+    Returns None (the hit stands), an IncrementalPlan (only the
+    selectors whose callee closure moved re-run; the rest is banked), or
+    the sentinel "stale" (the closure moved but the diff cannot be
+    trusted: full analysis, never the stale verdict)."""
+    from mythril_tpu_torch.analysis.static import summary_for
+    from mythril_tpu_torch.store import IncrementalBail, plan_linked_incremental
+
+    try:
+        summary = summary_for(norm, config_fp=config_fp)
+    except Exception:
+        log.warning("summary failed for linked hit %s", name, exc_info=True)
+        return None
+    if summary.code_hash not in linkset.nodes:
+        return None  # row not linked: pre-link behavior
+    linked_now, problems = linkset.linked_fingerprints(summary.code_hash)
+    if linked_now == entry.linked_fingerprints and not problems:
+        return None  # closure identical everywhere
+    try:
+        plan = plan_linked_incremental(summary, entry, linked_now, problems)
+    except IncrementalBail as bail:
+        log.info(
+            "Linked store hit for %s cannot be diffed: %s (full analysis)",
+            name,
+            bail.reason,
+        )
+        return "stale"
+    except Exception:
+        log.warning(
+            "linked incremental planning failed for %s; full analysis",
+            name,
+            exc_info=True,
+        )
+        return "stale"
+    if plan is None:
+        return None
+    log.info(
+        "Linked store hit for %s: callee closure moved for %d selector(s); "
+        "%d banked",
+        name,
+        len(plan.changed),
+        len(plan.unchanged),
+    )
+    return plan
+
+
+def _apply_incremental(result: Optional[Dict], plan, code: str) -> Optional[Dict]:
+    """Fold one incremental plan's banked issues into the fresh
+    (changed-selector-restricted) result and flag the route."""
+    if result is None or result.get("error"):
+        return result
+    from mythril_tpu_torch.store import merge_banked_issues
+
+    issues = result.setdefault("issues", [])
+    before = len(issues)
+    added = merge_banked_issues(issues, plan.banked_issues)
+    result.setdefault("issue_objects", []).extend(
+        _issue_objects(code, issues[before:])
+    )
+    result["store_incremental"] = True
+    result["store"] = dict(plan.as_dict(), banked_merged=added)
+    return result
+
+
+def _store_writeback(
+    results: List[Optional[Dict]],
+    contracts: List[Tuple[str, str, str]],
+    prepass: Dict[int, Dict],
+    vstore,
+    config_fp: str,
+    linkset=None,
+) -> int:
+    """Tier 3: persist every COMPLETE full analysis (incremental ones
+    too: a fork's merged verdict is a first-class entry for the next
+    fork). Store-hit and statically-answered rows are not re-written;
+    partial, skipped and errored rows never are. A write that fails is
+    recorded `store-writeback-failed` (by the store, or here when the
+    export raises)."""
+    if vstore is None:
+        return 0
+    from mythril_tpu_torch.analysis.static import static_prune_enabled, summary_for
+    from mythril_tpu_torch.store import (
+        banks_from_outcome,
+        code_hash_hex,
+        provenance,
+        static_export,
+    )
+    from mythril_tpu_torch.support.resilience import (
+        DegradationLog,
+        DegradationReason,
+    )
+
+    written = 0
+    for i, (code, creation_code, name) in enumerate(contracts):
+        result = results[i] if i < len(results) else None
+        if (
+            result is None
+            or creation_code
+            or not result.get("complete")
+            or result.get("store_hit")
+            or result.get("static_answered")
+            or result.get("skipped")
+        ):
+            continue
+        norm = code[2:] if code.startswith("0x") else code
+        if len(norm) < 8:
+            continue
+        summary = None
+        if static_prune_enabled():
+            try:
+                summary = summary_for(norm, config_fp=config_fp)
+            except Exception:
+                summary = None
+        try:
+            path = vstore.put(
+                code_hash_hex(norm),
+                config_fp,
+                issues=result.get("issues") or [],
+                static=static_export(summary, linkset=linkset),
+                banks=banks_from_outcome(prepass.get(i)),
+                provenance=provenance(
+                    wall_s=result.get("wall_s"),
+                    computed_by="corpus",
+                    incremental=bool(result.get("store_incremental")),
+                ),
+            )
+            written += bool(path)
+        except Exception as why:
+            DegradationLog().record(
+                DegradationReason.STORE_WRITEBACK_FAILED,
+                site="corpus-store",
+                detail=f"{type(why).__name__}: {why}",
+                contract=name,
+            )
+    if written:
+        log.info("Verdict store banked %d verdict(s)", written)
+    return written
+
+
+def _attach_link_meta(
+    results: List[Optional[Dict]],
+    contracts: List[Tuple[str, str, str]],
+    linkset,
+) -> None:
+    """Per-result cross-contract link facts (the jsonv2 report meta and
+    anyone reading the raw result dicts): the compact node block plus
+    the corpus-level stats on every row, so the consumers of one
+    contract's report still see the resolve rate the graph achieved."""
+    import hashlib
+
+    run_stats = linkset.stats()
+    for (code, _creation, _name), result in zip(contracts, results):
+        if result is None:
+            continue
+        try:
+            norm = code[2:] if code.startswith("0x") else code
+            code_hash = "0x" + hashlib.sha256(bytes.fromhex(norm)).hexdigest()
+        except ValueError:
+            continue
+        meta = linkset.node_meta(code_hash)
+        if meta is None:
+            continue
+        result["link"] = meta
+        result["link_run"] = dict(run_stats)
+
+
+def _link_pass(contracts: List[Tuple[str, str, str]]):
+    """The corpus link pass (analysis/static/linkset.py), or None when
+    static pruning is off, the corpus is empty, or the pass raised
+    (recorded `static-prepass-failed`, site `corpus-link`)."""
+    from mythril_tpu_torch.analysis.static import link_corpus, static_prune_enabled
+    from mythril_tpu_torch.support.resilience import (
+        DegradationLog,
+        DegradationReason,
+    )
+
+    if not (static_prune_enabled() and contracts):
+        return None
+    try:
+        linkset = link_corpus(contracts)
+        stats = linkset.stats()
+    except Exception as why:
+        DegradationLog().record(
+            DegradationReason.STATIC_PREPASS_FAILED,
+            site="corpus-link",
+            detail=f"{type(why).__name__}: {why}; corpus unlinked",
+        )
+        return None
+    log.info(
+        "Link pass: %d node(s), %d/%d edge(s) resolved, %d proxy pair(s) "
+        "in %.1fms",
+        stats["nodes"],
+        stats["edges_resolved"],
+        stats["edges"],
+        stats["proxy_pairs"],
+        stats["wall_ms"],
+    )
+    return linkset
 
 
 def _analyze_one(
@@ -746,6 +1152,8 @@ def analyze_corpus(
     devices: Optional[int] = None,
     waves: int = PREPASS_WAVES,
     device=None,
+    store_dir: Optional[str] = None,
+    store: Optional[bool] = None,
 ) -> List[Dict]:
     """Analyze `contracts` = [(runtime_code_hex, creation_code_hex,
     name), ...]: one striped device prepass on `device` (None: the
@@ -771,8 +1179,18 @@ def analyze_corpus(
     chip_smoke.py pass a small cap so that a run does not depend on the
     wall clock; `device_budget_s` then still applies). `processes` above
     1 (the JAX package's pooled walk) raises: the port walks in this
-    process."""
+    process.
+
+    `store_dir` (falling back to `args.store_dir`, MYTHRIL_STORE_DIR) is
+    the verdict store's directory; `store` False (or `args.store` off,
+    `--no-store`) turns the tier off: no lookup, no incremental plan, no
+    write-back. Exact hits carry `store_hit`, incremental results
+    `store_incremental` and the plan under `store`."""
     from mythril_tpu_torch.analysis.static import static_answer_enabled
+    from mythril_tpu_torch.analysis.static.summary import (
+        analysis_config_fingerprint,
+    )
+    from mythril_tpu_torch.store import configured_store
     from mythril_tpu_torch.support import resilience
 
     if processes is not None and processes > 1:
@@ -818,17 +1236,51 @@ def analyze_corpus(
         result["owned"] = False
         return result
 
+    config_fp = analysis_config_fingerprint(
+        modules=modules,
+        transaction_count=transaction_count,
+        solver_timeout=solver_timeout,
+        create_timeout=create_timeout,
+    )
+
     with _scoped_deterministic_solving(deterministic_solving):
+        # the corpus link pass, BEFORE the store triage: its resolved
+        # call graph feeds the linked-fingerprint diff (same proxy
+        # bytes, upgraded implementation) and every result's link meta
+        linkset = _link_pass(contracts)
+        # the verdict store's tiers 1 and 2: exact hits settle here,
+        # near-duplicates get a plan that masks their unchanged
+        # selectors out of the device exploration
+        vstore = None if store is False else configured_store(store_dir)
+        store_answers, store_plans = _store_triage(
+            contracts, vstore, config_fp, linkset=linkset
+        )
+        selector_masks = {
+            i: (plan.mask_selectors, plan.mask_directions)
+            for i, plan in store_plans.items()
+        } or None
+        prepass_kw["selector_masks"] = selector_masks
         # the static-answer triage tier: contracts the semantic screen
         # settles are answered HERE (microseconds) and excluded from the
-        # device prepass, which sees their rows as non-runnable so the
-        # index mapping every consumer shares stays intact
+        # device prepass, which sees their rows (and the store's hits)
+        # as non-runnable so the index mapping every consumer shares
+        # stays intact; it never re-examines a store hit
+        prepass_rows = [
+            ("", row[1], row[2]) if i in store_answers else row
+            for i, row in enumerate(contracts)
+        ]
         static_answers = (
-            _static_triage(contracts) if static_answer_enabled() else {}
+            _static_triage(prepass_rows) if static_answer_enabled() else {}
         )
-        prepass_rows = list(contracts)
+        settled = {**static_answers, **store_answers}
         for i in static_answers:
             prepass_rows[i] = ("", contracts[i][1], contracts[i][2])
+
+        def incremental(i, result):
+            plan = store_plans.get(i)
+            return result if plan is None else _apply_incremental(
+                result, plan, contracts[i][0]
+            )
         if use_device and len(contracts) > 1 and (
             _effective_cpus() > 1
             or len(_runnable_rows(prepass_rows)) >= OVERLAP_MIN_CORPUS
@@ -839,8 +1291,8 @@ def analyze_corpus(
                     "prepass runs one engine on one card"
                 )
             results, prepass = _overlapped_schedule(
-                contracts, prepass_rows, static_answers, own, deadline,
-                device_budget_s, prepass_kw, walk,
+                contracts, prepass_rows, settled, store_plans, own, deadline,
+                device_budget_s, prepass_kw, walk, incremental,
             )
         else:
             prepass = (
@@ -858,26 +1310,29 @@ def analyze_corpus(
             halt_reason = None
             for i, (code, creation_code, name) in enumerate(contracts):
                 resilience.inject("corpus.contract")
-                if i in static_answers:
-                    # statically answered: the empty issue set is the
-                    # analysis; it even survives a deadline halt (it
-                    # costs microseconds)
-                    results.append(static_answers[i])
+                if i in settled:
+                    # a store hit or a static answer: the banked or the
+                    # empty issue set is the analysis; it even survives
+                    # a deadline halt (it costs microseconds)
+                    results.append(settled[i])
                     continue
                 outcome = prepass.get(i)
                 if own and _outcome_owns(outcome):
                     # synthesis is cheap (no walk, no solver), so an
                     # owned contract reports in full even after a halt
-                    results.append(
-                        _owned_result(code, creation_code, name, outcome, address)
-                    )
+                    results.append(incremental(i, _owned_result(
+                        code, creation_code, name, outcome, address)))
                     continue
                 if halt_reason is None:
                     halt_reason = resilience.interrupted_reason(deadline)
                 if halt_reason is not None:
                     results.append(_skipped_result(name, halt_reason))
                     continue
-                results.append(walk(i, outcome, use_device))
+                if outcome is None and i in store_plans:
+                    # no device outcome: the store's banked coverage of
+                    # the unchanged selectors pre-empts walk queries
+                    outcome = store_plans[i].injected_outcome
+                results.append(incremental(i, walk(i, outcome, use_device)))
         if prepass:
             _merge_prepass_witnesses(results, contracts, prepass, address)
     skipped = 0
@@ -891,6 +1346,13 @@ def analyze_corpus(
             (prepass.get(i) or {}).get("device_complete")
         )
         skipped += bool(result.get("skipped"))
+    # tier 3: every completed full analysis becomes a store entry
+    if vstore is not None:
+        _store_writeback(
+            results, contracts, prepass, vstore, config_fp, linkset=linkset
+        )
+    if linkset is not None:
+        _attach_link_meta(results, contracts, linkset)
     if skipped and on_timeout == "fail":
         from mythril_tpu_torch.exceptions import DeadlineExpiredError
 
@@ -917,8 +1379,8 @@ def _scoped_deterministic_solving(value: Optional[bool]):
 
 
 def _overlapped_schedule(
-    contracts, prepass_rows, static_answers, own, deadline, device_budget_s,
-    prepass_kw, walk,
+    contracts, prepass_rows, settled, store_plans, own, deadline,
+    device_budget_s, prepass_kw, walk, incremental,
 ) -> Tuple[List[Dict], Dict[int, Dict]]:
     """The JAX package's overlapped single-process schedule: the prepass
     on its own thread (`OverlappedPrepass`) while this thread walks the
@@ -927,7 +1389,11 @@ def _overlapped_schedule(
     contract the running prepass may still own is deferred rather than
     walked; past the overlap window (1.25x the prepass budget, 2x from
     OVERLAP_MIN_CORPUS rows) one drain lets the prepass finish alone.
-    Returns (results in corpus order, the final outcomes)."""
+    `settled` holds the store's hits and the static answers; a contract
+    with a store plan (`store_plans`) walks with the plan's banked
+    coverage when no device outcome is out yet, and `incremental` folds
+    the plan's banked issues into its result. Returns (results in corpus
+    order, the final outcomes)."""
     from mythril_tpu_torch.support import resilience
 
     execution_timeout = prepass_kw["execution_timeout"]
@@ -960,8 +1426,8 @@ def _overlapped_schedule(
                 if halt_reason is None:
                     halt_reason = resilience.interrupted_reason(deadline)
                 code, creation_code, name = contracts[i]
-                if i in static_answers:
-                    slots[i] = static_answers[i]
+                if i in settled:
+                    slots[i] = settled[i]
                     progressed = True
                     continue
                 if halt_reason is not None:
@@ -971,12 +1437,17 @@ def _overlapped_schedule(
                 if time.perf_counter() - t_overlap > overlap_window_s:
                     pre.drain()
                 outcome, device_ok = pre.outcome_for(i)
+                if outcome is None and i in store_plans:
+                    # no device outcome (yet): the store's banked
+                    # coverage of the unchanged selectors pre-empts the
+                    # walk's feasibility queries instead
+                    outcome = store_plans[i].injected_outcome
                 if own and _outcome_owns(outcome):
                     # device-complete contract: the evidence IS the
                     # analysis; no walk, no lock, no solver
-                    slots[i] = _owned_result(
+                    slots[i] = incremental(i, _owned_result(
                         code, creation_code, name, outcome, address
-                    )
+                    ))
                     progressed = True
                     continue
                 if (
@@ -990,7 +1461,7 @@ def _overlapped_schedule(
                     deferred.append(i)
                     continue
                 with pre.lock:
-                    slots[i] = walk(i, outcome, device_ok)
+                    slots[i] = incremental(i, walk(i, outcome, device_ok))
                 pre.yield_lock()
                 progressed = True
             pending = deferred

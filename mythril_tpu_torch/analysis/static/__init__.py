@@ -40,10 +40,9 @@ seeded or any detection module is mounted:
 
 The whole pass is pure host work (no torch, no device):
 `python -m mythril_tpu_torch lint` runs it standalone, and `analyze`
-runs it as an always-on prepass unless --no-static-prune is given.
-This is the port's copy of the JAX package's analysis/static, without
-the corpus linker (`linkset.py`) and its exports, which only the
-verdict store and routing triage read.
+runs it as an always-on prepass unless --no-static-prune is given;
+`python -m mythril_tpu_torch graph` links a corpus (`linkset.py`).
+This is the port's copy of the JAX package's analysis/static.
 
 Manticore (arxiv 1907.03890) fronts symbolic exploration with exactly
 this kind of CFG recovery; the Blockchain Superoptimizer (arxiv
@@ -66,6 +65,11 @@ from mythril_tpu_torch.analysis.static.callgraph import (
     minimal_proxy_target,
 )
 from mythril_tpu_torch.analysis.static.cfg import BasicBlock, recover_cfg
+from mythril_tpu_torch.analysis.static.linkset import (
+    GRAPH_SCHEMA_VERSION,
+    LinkSet,
+    link_corpus,
+)
 from mythril_tpu_torch.analysis.static.screen import (
     MODULE_SIGNATURES,
     SINK_PREDICATES,
@@ -115,9 +119,11 @@ def static_answer_enabled() -> bool:
 __all__ = [
     "BasicBlock",
     "ContractNode",
+    "GRAPH_SCHEMA_VERSION",
     "LINK_CHECKS",
     "LINT_CHECKS",
     "LINT_SCHEMA_VERSION",
+    "LinkSet",
     "PROXY_IMPL_SLOTS",
     "PROXY_SLOTS",
     "UPGRADE_SELECTORS",
@@ -134,6 +140,7 @@ __all__ = [
     "analyze_bytecode",
     "clear_static_cache",
     "implementation_from_init_code",
+    "link_corpus",
     "link_node",
     "link_stat_counts",
     "minimal_proxy_target",

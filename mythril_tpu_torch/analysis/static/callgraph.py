@@ -40,7 +40,7 @@ watcher.py` shares so the streaming proxy-upgrade detector and the
 linker can never drift on slot constants.
 
 Everything here is pure host work over facts `StaticSummary` already
-computed (no torch, no solver), so so `lint` keeps
+computed (no torch, no solver), so `lint` and `graph` keep
 their sub-second budget.
 """
 
@@ -637,6 +637,15 @@ def _bump(key: str, n: int = 1) -> None:
         return
     with _COUNTS_LOCK:
         _COUNTS[key] = _COUNTS.get(key, 0) + n
+    try:
+        from mythril_tpu_torch.observe.registry import registry
+
+        registry().counter(
+            f"mtpu_static_link_{key}_total",
+            f"static linker {key.replace('_', ' ')}",
+        ).inc(n)
+    except Exception:
+        pass  # telemetry must never sink the link pass
 
 
 def _record_node(node: ContractNode) -> None:

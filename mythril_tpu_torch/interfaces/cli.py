@@ -1,6 +1,6 @@
 """`python -m mythril_tpu_torch analyze`: runtime bytecode in, the JAX
 package's `Report` out, through the analyzer facade, as the JAX `myth
-analyze` runs it; `lint`, `serve`, `submit`, `disassemble`,
+analyze` runs it; `lint`, `graph`, `serve`, `submit`, `disassemble`,
 `list-detectors`, `function-to-hash` and `version`.
 
 `analyze` loads the bytecode (`-c`, or `-f` once per contract of a
@@ -35,12 +35,14 @@ JAX package: `--no-specialize` restores the generic kernel and
 `--no-blockjit` the fuse-only one. The port has no chain client:
 on-chain data (the default, as in the JAX package) makes storage concrete
 and every chain read fails, `--no-onchain-data` keeps storage symbolic.
+`--store DIR` (or MYTHRIL_STORE_DIR) banks every cleanly completed
+contract's verdict in the verdict store (store/), as the JAX facade
+does; `--no-store` turns the tier off.
 
 Refused, with the module each needs named (exit 2), never ignored:
 Solidity input, `--truffle`, `--solv`, `--solc-json` (solc), `-a`,
 `--rpc`, `--infura-id` (the chain RPC client), `-q` (the online signature
-lookup), `--devices N` above 1 (the device mesh), `--store` or
-MYTHRIL_STORE_DIR (the verdict store), `--host-first-funnel`,
+lookup), `--devices N` above 1 (the device mesh), `--host-first-funnel`,
 `--sparse-pruning` and `--unconstrained-storage` (not in the port's
 explorer and host walk), `--no-static-answer` (the static-answer tier,
 which only analysis/corpus.py:analyze_corpus and `serve` have), and the
@@ -52,17 +54,26 @@ the detector screen and the static findings, as text or json), and
 never touches the card. `--fail-on CHECK` exits 1 when the check fires
 on any contract, 2 when the check is unknown.
 
+`graph DIR|FILE... [--json]` links runtime bytecode files into the
+corpus call graph (analysis/static/linkset.py: provenance-tagged edges,
+proxy pairs, storage collisions, escape summaries, linked fingerprints,
+the arena co-location plan), as the JAX `myth graph` prints it; a
+`@0x<40 hex>` suffix in a file's name declares its deployment address.
+Host work only: it never touches the card.
+
 `serve` runs the persistent analysis service (service/server.py) until
 a drain (SIGTERM, SIGINT or POST /v1/drain), with the JAX package's
 `myth serve` flags and defaults for the single arena, on the card
 unless `--device cpu`; `submit` sends bytecode to a running service and
-prints the report as JSON. The flags of modules the port does not have
+prints the report as JSON. `serve --store DIR` (or MYTHRIL_STORE_DIR)
+settles repeat submissions at admission from the verdict store and banks
+every completed walk, as the JAX service does; `--no-store` turns the
+tier off. The flags of modules the port does not have
 are refused with an error that names the module, rather than ignored:
 `--devices N` above 1 (the device mesh), `--journal` and `--recover`
-(service/journal.py), `--store` (the verdict store, store/store.py),
-`--router` (routing/), `--kernel-pack` and `--kernel-cache` (the
-compile plane), and their environment variables; so is `submit
---address` (the chain RPC client). `--no-store`, `--no-router` and
+(service/journal.py), `--router` (routing/), `--kernel-pack` and
+`--kernel-cache` (the compile plane), and their environment variables;
+so is `submit --address` (the chain RPC client). `--no-router` and
 `--no-aot` ask for what the port always does, and are accepted.
 """
 
@@ -71,6 +82,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 from typing import List, Tuple
 
@@ -81,7 +93,6 @@ SERVE_REFUSED = (
     ("--devices N > 1", "the device mesh (parallel/mesh.py, topology.py)"),
     ("--journal", "the durable job journal (service/journal.py)"),
     ("--recover", "the durable job journal (service/journal.py)"),
-    ("--store / MYTHRIL_STORE_DIR", "the verdict store (store/store.py)"),
     ("--router / MYTHRIL_ROUTER_DIR", "the learned router (routing/)"),
     ("--kernel-pack", "the compile plane (compileplane/)"),
     ("--kernel-cache / MYTHRIL_KERNEL_CACHE", "the compile plane (compileplane/)"),
@@ -281,11 +292,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     options.add_argument(
         "--store", default=None, metavar="DIR",
-        help="cross-run verdict store (not ported: refused)",
+        help="Cross-run verdict store directory (env MYTHRIL_STORE_DIR): "
+        "every cleanly completed contract writes its verdict back, so a "
+        "later corpus run or `serve` settles the repeat from the banked "
+        "(codehash, config-fingerprint) verdict",
     )
     options.add_argument(
         "--no-store", action="store_true",
-        help="no verdict store tier (the port has none)",
+        help="Disable the verdict store entirely (no write-back) even when a "
+        "directory is configured",
     )
     options.add_argument(
         "--no-specialize", action="store_true",
@@ -427,6 +442,24 @@ def build_parser() -> argparse.ArgumentParser:
         "delegatecall-to-upgradeable-target, proxy-storage-collision, "
         "tainted-cross-contract-call-arg, untrusted-return-data-in-guard",
     )
+    graph = commands.add_parser(
+        "graph",
+        help="Cross-contract static linker: join every input contract's call "
+        "sites into one typed inter-contract call graph (provenance-annotated "
+        "edges, proxy pairing, escape summaries, arena co-location plan); host "
+        "work, no card. Deployment addresses ride file names as "
+        "'name@0x<40-hex-addr>'",
+    )
+    graph.add_argument(
+        "graph_inputs", nargs="+", metavar="DIR|FILE",
+        help="directories and/or files of runtime bytecode hex "
+        "(.hex/.sol.o/.bin-runtime or raw hex files)",
+    )
+    graph.add_argument(
+        "--json", action="store_true", dest="graph_json",
+        help="emit the full link-graph JSON payload (schema_version pinned) "
+        "instead of the human summary",
+    )
     _add_serve(commands)
     _add_submit(commands)
     return parser
@@ -529,11 +562,15 @@ def _add_serve(commands) -> None:
     )
     serve.add_argument(
         "--store", default=None, metavar="DIR",
-        help="cross-run verdict store (not ported: refused)",
+        help="cross-run verdict store (env MYTHRIL_STORE_DIR): repeat "
+        "submissions settle DONE at admission from the banked (codehash, "
+        "config-fingerprint) verdict (no queue slot, no wave) and completed "
+        "walks write back (/stats store.*)",
     )
     serve.add_argument(
         "--no-store", action="store_true",
-        help="no verdict store tier (the port has none)",
+        help="disable the verdict store tier (no admission lookups, no "
+        "write-back) even when a directory is configured",
     )
     serve.add_argument(
         "--journal", default=None, metavar="DIR",
@@ -642,15 +679,10 @@ def _add_submit(commands) -> None:
 def serve_refusals(args) -> List[str]:
     """The `serve` settings of modules the port does not have, each
     with the module it needs."""
-    import os
-
     asked = {
         "--devices N > 1": args.devices > 1,
         "--journal": bool(args.journal),
         "--recover": args.recover,
-        "--store / MYTHRIL_STORE_DIR": bool(
-            args.store or os.environ.get("MYTHRIL_STORE_DIR")
-        ) and not args.no_store,
         "--router / MYTHRIL_ROUTER_DIR": bool(
             args.router or os.environ.get("MYTHRIL_ROUTER_DIR")
         ) and not args.no_router,
@@ -710,9 +742,17 @@ def run_serve(args) -> int:
         breakers=not args.no_breakers,
         quarantine_strikes=args.quarantine_strikes,
         device=None if args.device == "cuda" else args.device,
+        store_dir=store_dir(args),
+        store=not args.no_store,
     )
     serve_forever(config, host=args.host, port=args.port)
     return 0
+
+
+def store_dir(args):
+    """`--store DIR`, else MYTHRIL_STORE_DIR, else None (the JAX
+    commands' rule)."""
+    return args.store or os.environ.get("MYTHRIL_STORE_DIR") or None
 
 
 def run_submit(args) -> int:
@@ -807,14 +847,9 @@ def input_refusals(args) -> List[str]:
 def analyze_refusals(args) -> List[str]:
     """`analyze`'s flags whose modules the port does not have, each with
     what it needs; the inputs' refusals first."""
-    import os
-
     asked = [
         ("--devices N > 1", (args.devices or 1) > 1,
          "the device mesh (parallel/mesh.py, topology.py), which is not ported"),
-        ("--store / MYTHRIL_STORE_DIR",
-         bool(args.store or os.environ.get("MYTHRIL_STORE_DIR")) and not args.no_store,
-         "the verdict store (store/store.py), which is not ported"),
         ("--host-first-funnel", args.host_first_funnel,
          "the host-first solver funnel, which is not in the port's explorer"),
         ("--sparse-pruning", args.sparse_pruning,
@@ -971,6 +1006,8 @@ def run_analyze(args) -> int:
         capture_queries=args.capture_queries,
         sprint_cap_s=args.sprint_cap_s,
         device=None if args.device == "cuda" else args.device,
+        store_dir=store_dir(args),
+        store=not args.no_store,
     )
     _override_actors(args)
     if args.graph:
@@ -1163,6 +1200,160 @@ def lint_text(row: dict) -> str:
     return "\n".join(lines)
 
 
+#: file suffixes `graph DIR` picks up when walking a directory
+#: (explicitly named files are always taken as-is)
+_GRAPH_SUFFIXES = (".hex", ".sol.o", ".bin-runtime", ".bin", ".evm", ".code")
+
+
+def graph_inputs(paths) -> List[Tuple[str, str]]:
+    """Expand `graph` positionals into (name, runtime_hex) rows, as the
+    JAX `_graph_inputs` does. Directories contribute their hex-bearing
+    files (sorted, one contract per file); files given directly are
+    taken regardless of suffix. The file stem is the contract name: a
+    ``@0x<40 hex>`` suffix in it declares the deployment address for the
+    link-time address book (linkset.address_from_name). A missing input
+    exits 2."""
+    files = []
+    for given in paths:
+        if os.path.isdir(given):
+            for entry in sorted(os.listdir(given)):
+                full = os.path.join(given, entry)
+                if os.path.isfile(full) and entry.endswith(_GRAPH_SUFFIXES):
+                    files.append(full)
+        elif os.path.isfile(given):
+            files.append(given)
+        else:
+            print(f"graph input not found: {given}", file=sys.stderr)
+            sys.exit(2)
+    rows = []
+    for path in files:
+        try:
+            with open(path) as handle:
+                blob = "".join(part for line in handle for part in line.split())
+        except OSError as why:
+            print(f"cannot read {path}: {why}", file=sys.stderr)
+            sys.exit(2)
+        if blob.startswith("0x"):
+            blob = blob[2:]
+        if not blob:
+            print(f"graph: {path} is empty; skipped", file=sys.stderr)
+            continue
+        try:
+            bytes.fromhex(blob)
+        except ValueError:
+            print(f"graph: {path} is not bytecode hex; skipped", file=sys.stderr)
+            continue
+        name = os.path.basename(path)
+        for suffix in _GRAPH_SUFFIXES:
+            if name.endswith(suffix):
+                name = name[: -len(suffix)]
+                break
+        rows.append((name, blob))
+    return rows
+
+
+def run_graph(args) -> int:
+    """`graph DIR|FILE... [--json]`: the cross-contract static linker over
+    runtime bytecode files, printed as the JAX `myth graph` prints it
+    (`--json`: the LinkSet payload, indented, keys sorted). A contract the
+    link pass raises on is skipped with a warning, as in the JAX command;
+    exit 1 when none links."""
+    from mythril_tpu_torch.analysis.static import summary_for
+    from mythril_tpu_torch.analysis.static.linkset import LinkSet
+
+    rows = graph_inputs(args.graph_inputs)
+    if not rows:
+        print("graph: no bytecode inputs", file=sys.stderr)
+        return 2
+    linkset = LinkSet()
+    for name, blob in rows:
+        try:
+            linkset.add(name, bytes.fromhex(blob), summary_for(blob))
+        except Exception as why:
+            print(f"graph: link pass skipped {name}: {why}", file=sys.stderr)
+    if not linkset.nodes:
+        print("graph: no contract linked", file=sys.stderr)
+        return 1
+    payload = linkset.as_dict()
+    if args.graph_json:
+        print(json.dumps(payload, indent=2, sort_keys=True))
+        return 0
+    print(graph_text(payload, linkset.names))
+    return 0
+
+
+def graph_text(payload: dict, names: dict) -> str:
+    """The link graph as the JAX `myth graph` prints it."""
+    stats = payload["stats"]
+    lines = [
+        "Link graph: {nodes} contract(s), {edges} call site(s) "
+        "({edges_resolved} resolved, resolve rate {resolve_rate})".format(**stats)
+    ]
+    for edge in payload["edges"]:
+        target = (
+            names.get(edge["callee"], edge["callee"])
+            if edge["callee"]
+            else (edge["target_address"] or "?")
+        )
+        lines.append(
+            "  {caller} pc {pc} {kind} [{selector}] --{provenance}--> "
+            "{target}{mark}".format(
+                caller=names.get(edge["caller"], edge["caller"]),
+                pc=edge["pc"],
+                kind=edge["kind"],
+                selector=edge["selector"],
+                provenance=edge["provenance"],
+                target=target,
+                mark="" if edge["resolved"] else " (unresolved)",
+            )
+        )
+    if payload["proxy_pairs"]:
+        lines.append("Proxy pairs:")
+        for pair in payload["proxy_pairs"]:
+            lines.append(
+                "  {proxy} --[{kind}{upgrade}]--> {impl}".format(
+                    proxy=names.get(pair["proxy"], pair["proxy"]),
+                    kind=pair["kind"],
+                    upgrade=", upgradeable" if pair["upgradeable"] else "",
+                    impl=names.get(pair["implementation"], pair["implementation"]),
+                )
+            )
+    if payload["collisions"]:
+        lines.append("Storage collisions:")
+        for row in payload["collisions"]:
+            lines.append(
+                "  {proxy} / {impl}: slot(s) {slots}".format(
+                    proxy=names.get(row["proxy"], row["proxy"]),
+                    impl=names.get(row["implementation"], row["implementation"]),
+                    slots=", ".join(row["slots"]),
+                )
+            )
+    if payload["findings"]:
+        lines.append("Findings:")
+        lines.extend(
+            "  - [{check}] {contract}: {detail}".format(**finding)
+            for finding in payload["findings"]
+        )
+    lines.append("Arena co-location plan:")
+    for entry, callees in payload["arena_plan"].items():
+        lines.append(
+            "  {entry}: {callees}".format(
+                entry=entry,
+                callees=(
+                    ", ".join(names.get(ch, ch) for ch in callees)
+                    if callees
+                    else "(self only)"
+                ),
+            )
+        )
+    lines.append(
+        "Proxies: {proxies}, pairs: {proxy_pairs}, collisions: "
+        "{collisions}, escape widened: {escape_widened}, wall: "
+        "{wall_ms} ms".format(**stats)
+    )
+    return "\n".join(lines)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -1183,6 +1374,8 @@ def main(argv=None) -> int:
         return run_disassemble(args)
     if args.command == "lint":
         return run_lint(args)
+    if args.command == "graph":
+        return run_graph(args)
     if args.command == "serve":
         logging.basicConfig(level=logging.WARNING)
         return run_serve(args)

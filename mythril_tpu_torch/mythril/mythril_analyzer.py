@@ -22,8 +22,12 @@ Where the port differs, and how it says so:
   re-raises the thread's exception): no contract is walked without the
   card after it, and the witness merge (`_merge_prepass_issues`) raises
   where the JAX one logs at DEBUG and goes on;
+- the verdict store's write-back (`_store_writeback`, tier 3 of store/:
+  a cleanly completed runtime-only contract banks its verdict) is the
+  JAX one, but a write that fails is recorded in the DegradationLog
+  (`store-writeback-failed`, by store/store.py or here), where the JAX
+  facade only logs it; the report stands;
 - not ported, and refused with the module named rather than ignored:
-  the verdict store's write-back (`store_dir` with `store`: store/) and
   the routing record (`_routing_record`: routing/, observe/routing.py),
   the device mesh (`mesh_devices > 1`), the host-first solver funnel
   (`device_first=False`), and `sparse_pruning` / `unconstrained_storage`,
@@ -41,6 +45,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 import traceback
 from contextlib import nullcontext
 from typing import List, Optional
@@ -109,6 +114,11 @@ _GLOBAL_DEFAULTS = dict(
     # None = leave the flag bag as-is (the command line always passes
     # the explicit value)
     blockjit=None,
+    # cross-run verdict store (store/, --store DIR / --no-store): the
+    # corpus driver and this facade's write-back read these from the
+    # flag bag
+    store_dir=os.environ.get("MYTHRIL_STORE_DIR") or None,
+    store=True,
 )
 
 #: the JAX facade's options whose modules the port does not have:
@@ -152,15 +162,6 @@ class MythrilAnalyzer:
             for field, default, fine, why in _REFUSED
             if not fine(options.pop(field, default))
         ]
-        store_dir = options.pop(
-            "store_dir", os.environ.get("MYTHRIL_STORE_DIR") or None
-        )
-        if store_dir and options.pop("store", True):
-            refused.append(
-                f"the verdict store at {store_dir} needs store/store.py, "
-                "which is not ported"
-            )
-        options.pop("store", None)
         if refused:
             raise NotImplementedError("; ".join(refused))
         self.device = resolve_device(device)
@@ -392,6 +393,7 @@ class MythrilAnalyzer:
                 )
                 continue
             StartTime()  # fresh discovery-time baseline per contract
+            t_contract = time.perf_counter()
             outcome, device_ok = (
                 pre.outcome_for(index) if pre is not None else (None, True)
             )
@@ -437,8 +439,80 @@ class MythrilAnalyzer:
                 issue.add_code_info(contract)
             collected += issues
             completion.append({"contract": contract.name, "complete": not crashed})
+            if not crashed:
+                self._store_writeback(
+                    contract, issues, outcome, time.perf_counter() - t_contract,
+                    modules, transaction_count,
+                )
             log.info("Host phase profile: %s", PhaseProfile().as_dict())
         return collected, crashes, execution_info, completion
+
+    def _store_writeback(
+        self,
+        contract,
+        issues: List[Issue],
+        outcome,
+        wall_s: float,
+        modules: Optional[List[str]] = None,
+        transaction_count: Optional[int] = None,
+    ) -> None:
+        """Tier 3 of the verdict store on the one-shot command-line path:
+        a cleanly completed contract banks its verdict (keyed on its
+        RUNTIME code and the run's config fingerprint), so a later
+        `serve` or corpus run settles the repeat at admission. Deploying
+        analyses are not banked: their verdict covers creation code the
+        runtime key does not. A write that fails is recorded
+        `store-writeback-failed`."""
+        from mythril_tpu_torch.store import configured_store
+        from mythril_tpu_torch.support.resilience import (
+            DegradationLog,
+            DegradationReason,
+        )
+
+        vstore = configured_store()
+        if vstore is None:
+            return
+        runtime = (contract.code or "").removeprefix("0x")
+        if len(runtime) < 8 or getattr(contract, "creation_code", ""):
+            return
+        try:
+            from mythril_tpu_torch.analysis.static import (
+                static_prune_enabled,
+                summary_for,
+            )
+            from mythril_tpu_torch.analysis.static.summary import (
+                analysis_config_fingerprint,
+            )
+            from mythril_tpu_torch.store import (
+                banks_from_outcome,
+                code_hash_hex,
+                provenance,
+                static_export,
+            )
+
+            config_fp = analysis_config_fingerprint(
+                modules=modules,
+                transaction_count=transaction_count,
+                create_timeout=self.create_timeout,
+            )
+            summary = None
+            if static_prune_enabled():
+                summary = summary_for(runtime, config_fp=config_fp)
+            vstore.put(
+                code_hash_hex(runtime),
+                config_fp,
+                issues=[issue.as_dict for issue in issues],
+                static=static_export(summary),
+                banks=banks_from_outcome(outcome),
+                provenance=provenance(wall_s=wall_s, computed_by="analyzer"),
+            )
+        except Exception as why:
+            DegradationLog().record(
+                DegradationReason.STORE_WRITEBACK_FAILED,
+                site="analyzer",
+                detail=f"{type(why).__name__}: {why}",
+                contract=contract.name,
+            )
 
     def _merge_prepass_issues(self, final: dict, collected: List[Issue]) -> List[Issue]:
         """Witness issues the device banked for contracts the host walk

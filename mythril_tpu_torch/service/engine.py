@@ -52,11 +52,21 @@ there is none; "cpu" runs the plain versions of the kernels):
   side streams of their own over tables of their own, never on the
   serving stream.
 
+The verdict store (store/, `serve --store DIR`) is the JAX engine's
+tier: a repeat submission (same codehash, same config fingerprint)
+settles DONE at admission with the banked issue set (no queue slot, no
+wave, no walk, not counted in backpressure), and every job that
+completes its host walk cleanly writes its verdict back. A write-back
+that fails is recorded in the DegradationLog (`store-writeback-failed`)
+and a lookup that raises `store-unavailable`, where the JAX engine only
+logs them; the job goes on as in the JAX engine. The journal's
+re-admission through the store waits for service/journal.py.
+
 Left out with their modules (refused by `serve`): the device mesh
-(`devices > 1`), the verdict store, the durable journal and its
-recovery, the learned router and its routing records, and the compile
-plane's kernel packs and artifact cache. /stats keeps the JAX
-package's key set: their blocks read as disabled.
+(`devices > 1`), the durable journal and its recovery, the learned
+router and its routing records, and the compile plane's kernel packs
+and artifact cache. /stats keeps the JAX package's key set: their
+blocks read as disabled.
 """
 
 from __future__ import annotations
@@ -159,6 +169,8 @@ class ServiceConfig:
         breakers: bool = True,
         quarantine_strikes: int = 2,
         device=None,
+        store_dir: Optional[str] = None,
+        store: bool = True,
     ) -> None:
         self.stripes = stripes
         self.lanes_per_stripe = lanes_per_stripe
@@ -213,6 +225,15 @@ class ServiceConfig:
         #: process-wide static flags (`--no-static-prune` restores
         #: full-mount parity).
         self.static_answer = static_answer
+        #: cross-run verdict store (store/, `serve --store DIR`): repeat
+        #: submissions (same codehash, same analysis-config fingerprint)
+        #: settle DONE at admission with the banked issue set
+        #: (registry-only admission, no queue slot, no wave, no walk),
+        #: and every completed walk writes its verdict back. `--no-store`
+        #: (store=False) disables the tier even with a directory
+        #: configured.
+        self.store_dir = store_dir
+        self.store = store
         #: arena warmup (`serve` default ON, tests default OFF):
         #: `start()` launches a background thread that builds and loads
         #: the wave's kernel libraries and lands one all-halt wave of
@@ -685,6 +706,15 @@ class AnalysisEngine:
             "submissions settled by the static-answer triage tier "
             "(no device dispatch, no host walk)",
         ).labels(**lab)
+        self._c_store_answered = reg.counter(
+            "mtpu_service_store_answered_total",
+            "submissions settled by the verdict store at admission "
+            "(no queue slot, no wave, no walk)",
+        ).labels(**lab)
+        self._c_store_writebacks = reg.counter(
+            "mtpu_service_store_writebacks_total",
+            "completed walks persisted into the verdict store",
+        ).labels(**lab)
         self._c_wave_kind = reg.counter(
             "mtpu_service_wave_kind_total",
             "waves by kernel kind (specialized vs generic)",
@@ -729,7 +759,8 @@ class AnalysisEngine:
         for child in (
             self._c_waves, self._c_device_steps, self._c_host_completed,
             self._c_rebuckets, self._c_static_seeds,
-            self._c_static_answered, self._c_spec_waves,
+            self._c_static_answered, self._c_store_answered,
+            self._c_store_writebacks, self._c_spec_waves,
             self._c_generic_waves, self._c_fused, self._c_fallbacks,
             self._c_overlapped, self._c_multi_job, self._c_quarantined,
         ):
@@ -750,6 +781,25 @@ class AnalysisEngine:
         self._last_wave_t: Optional[float] = None
         self._wave_cold_s: Optional[float] = None
         self._wave_warm_ema_s: Optional[float] = None
+        # -- cross-run verdict store (store/) ---------------------------
+        # one fingerprint per engine: the service's verdict-relevant
+        # config is fixed at construction, so repeats hash once
+        self.vstore = None
+        self._config_fp: Optional[str] = None
+        if self.cfg.store:
+            from mythril_tpu_torch.analysis.static.summary import (
+                analysis_config_fingerprint,
+            )
+            from mythril_tpu_torch.store import configured_store
+
+            # a directory that cannot be opened is recorded
+            # store-unavailable by store/store.py: the tier stays off
+            self.vstore = configured_store(self.cfg.store_dir)
+            if self.vstore is not None:
+                self._config_fp = analysis_config_fingerprint(
+                    transaction_count=self.cfg.transaction_count,
+                    create_timeout=self.cfg.create_timeout,
+                )
         self._checkpoint_dir: Optional[str] = self.cfg.checkpoint_dir
         self._drained = threading.Event()
         self._draining = False
@@ -951,6 +1001,8 @@ class AnalysisEngine:
             self._idem[key] = job.id
         if self._try_quarantine(job):
             return job
+        if self._try_store_hit(job):
+            return job
         if self._try_static_answer(job):
             return job
         self.queue.submit(job)  # raises QueueRefusal on backpressure
@@ -1048,6 +1100,62 @@ class AnalysisEngine:
             br.record_success()
         else:
             br.record_failure(detail)
+
+    def _try_store_hit(self, job: Job) -> bool:
+        """The verdict-store exact-hit tier at admission (HTTP thread,
+        one hash and one file read warm): a submission whose (codehash,
+        config fingerprint) is banked settles DONE with the stored issue
+        set before it ever reaches the queue (registry-only admission,
+        exactly like the static-answer tier below it). False keeps the
+        job on the full path; QueueRefusal propagates when draining. A
+        lookup that raises is recorded `store-unavailable`."""
+        from mythril_tpu_torch.store import store_enabled
+        from mythril_tpu_torch.support.resilience import (
+            DegradationLog,
+            DegradationReason,
+        )
+
+        if self.vstore is None or not store_enabled():
+            return False
+        try:
+            entry = self.vstore.get(
+                CodeCache.code_hash(job.code), self._config_fp
+            )
+        except Exception as why:
+            DegradationLog().record(
+                DegradationReason.STORE_UNAVAILABLE,
+                site="service-store",
+                contract=job.id,
+                detail=f"{type(why).__name__}: {why}; full path",
+            )
+            return False
+        if entry is None:
+            return False
+        self.queue.register(job)  # raises QueueRefusal when draining
+        self._c_store_answered.inc()
+        observe.journey_event(
+            job.journey_id, journey.TIER_STORE_HIT, "banked-verdict",
+            issues=len(entry.issues or ()),
+        )
+        now = time.monotonic()
+        job.report = {
+            "job_id": job.id,
+            "journey_id": job.journey_id,
+            "code_hash": entry.code_hash,
+            "store_hit": True,
+            "issues": entry.issues,
+            "store": {
+                "config_fingerprint": entry.config_fp,
+                "provenance": entry.provenance,
+            },
+            "timings": {
+                "queued_s": 0.0,
+                "device_s": 0.0,
+                "total_s": round(now - job.created_t, 6),
+            },
+        }
+        self.queue.settle(job, JobState.DONE)
+        return True
 
     def _try_static_answer(self, job: Job) -> bool:
         """The static-answer triage tier at admission (runs on the
@@ -2016,6 +2124,54 @@ class AnalysisEngine:
             # innocent job implicated in a shared-wave fault proves
             # itself by passing its solo wave
             self._strikes.pop(CodeCache.code_hash(job.code), None)
+            self._store_writeback(job, report, outcome)
+
+    def _store_writeback(self, job: Job, report: Dict, outcome: Dict) -> None:
+        """Tier 3: a job that completed its host walk cleanly (no error,
+        no degradation) banks its verdict and the wave phase's evidence
+        for future admissions. Device-only reports (host walk off) are
+        NOT banked: the store must never serve a weaker verdict than a
+        full analysis would compute. A write that fails is recorded
+        `store-writeback-failed` (by store/store.py, or here when the
+        export raises)."""
+        if self.vstore is None or report.get("host") is None:
+            return
+        if report["host"].get("error") or job.degraded:
+            return
+        from mythril_tpu_torch.support.resilience import (
+            DegradationLog,
+            DegradationReason,
+        )
+
+        try:
+            from mythril_tpu_torch.store import (
+                banks_from_outcome,
+                provenance,
+                static_export,
+            )
+
+            summary = self.code_cache.static_summary(job.code)
+            path = self.vstore.put(
+                CodeCache.code_hash(job.code),
+                self._config_fp,
+                issues=report.get("issues") or [],
+                static=static_export(summary),
+                banks=banks_from_outcome(outcome),
+                provenance=provenance(
+                    wall_s=report["timings"].get("total_s"),
+                    computed_by=f"service:{self._eid}",
+                ),
+            )
+        except Exception as why:
+            DegradationLog().record(
+                DegradationReason.STORE_WRITEBACK_FAILED,
+                site="service-store",
+                contract=job.id,
+                detail=f"{type(why).__name__}: {why}",
+            )
+            return
+        if path:
+            self._c_store_writebacks.inc()
 
     # -- drain checkpoints ----------------------------------------------
     def checkpoint_dir(self) -> str:
@@ -2167,8 +2323,9 @@ class AnalysisEngine:
         wave loop is mutating them; the queue/arena/cache blocks are
         internally consistent behind their own locks. Pinned by
         `schema_version`: the JAX package's key set, with the blocks of
-        the modules the port leaves out (mesh, store, journal, the
-        static linker) reading as disabled or zero."""
+        the modules the port leaves out (mesh, journal) reading as
+        disabled or zero."""
+        from mythril_tpu_torch.analysis.static import link_stat_counts
         from mythril_tpu_torch.support.resilience import DegradationLog
 
         now = time.monotonic()
@@ -2248,18 +2405,24 @@ class AnalysisEngine:
                     for g in occupancy["groups"]
                 ],
             },
-            "store": {
-                "hits": 0,
-                "near_hits": 0,
-                "misses": 0,
-                "writes": 0,
-                "bytes": 0,
-                "evictions": 0,
-                "corrupt": 0,
-                "enabled": False,
-                "answered": 0,
-                "writebacks": 0,
-            },
+            "store": dict(
+                (
+                    self.vstore.stats()
+                    if self.vstore is not None
+                    else {
+                        "hits": 0,
+                        "near_hits": 0,
+                        "misses": 0,
+                        "writes": 0,
+                        "bytes": 0,
+                        "evictions": 0,
+                        "corrupt": 0,
+                    }
+                ),
+                enabled=self.vstore is not None,
+                answered=int(sv("mtpu_service_store_answered_total")),
+                writebacks=int(sv("mtpu_service_store_writebacks_total")),
+            ),
             "static": {
                 "summaries_cached": self.code_cache.static_summaries,
                 "seeds_dropped": int(
@@ -2269,7 +2432,9 @@ class AnalysisEngine:
                     sv("mtpu_service_static_answered_total")
                 ),
                 "answer_enabled": bool(self.cfg.static_answer),
-                "link": {},
+                # the cross-contract linker's process-wide counters
+                # (analysis/static/callgraph.py): the `static.link.*` rows
+                "link": link_stat_counts(),
             },
             "journal": {
                 "enabled": False,

@@ -65,6 +65,7 @@ STATES = (STATE_CLOSED, STATE_HALF_OPEN, STATE_OPEN)
 TIER_DEVICE = "device"  # the service's device wave dispatch
 TIER_DEVICE_SOLVE = "device-solve"  # device-first solver funnel
 TIER_KERNEL = "kernel"  # the service's bucket warmups and specialized waves
+TIER_STORE = "store"  # verdict-store reads/writes
 
 #: the redline-vocabulary prefix (observe/slo.py REDLINE_BREAKER_OPEN)
 REASON_PREFIX = "breaker-open"

@@ -118,6 +118,14 @@ class DegradationReason:
     #: admission keeps working — crash-safety is reported lost, never
     #: traded for availability (service/journal.py)
     JOURNAL_DEGRADED = "journal-degraded"
+    #: the verdict store (store/) could not be opened or read: the
+    #: lookup is a miss and the contract takes the full path (port-only:
+    #: the JAX package only logs it)
+    STORE_UNAVAILABLE = "store-unavailable"
+    #: a verdict could not be written back into the store: the analysis
+    #: stands, the next run recomputes it (port-only: the JAX package
+    #: only logs it)
+    STORE_WRITEBACK_FAILED = "store-writeback-failed"
 
 
 #: observers notified after every DegradationLog.record — the

@@ -15,6 +15,8 @@ contract-specialized loop with block substeps unless the caller passes
 
 from __future__ import annotations
 
+import os
+
 from mythril_tpu_torch.support.support_utils import Singleton
 
 
@@ -98,6 +100,16 @@ class Args(object, metaclass=Singleton):
         # from support/resilience.py:run_deadline().
         self.run_deadline_s = None
         self.on_timeout = "partial"
+        # Cross-run verdict store (store/, CLI --store DIR / --no-store):
+        # a persistent (codehash, config-fingerprint) -> verdict map.
+        # With a directory set, repeat submissions settle from the store
+        # at admission, near-duplicate forks re-analyze only changed
+        # selectors, and every completed full analysis writes its
+        # verdict back. store_dir=None = no persistence; store=False
+        # (--no-store) disables the whole tier even with a directory
+        # configured.
+        self.store_dir = os.environ.get("MYTHRIL_STORE_DIR") or None
+        self.store = True
 
 
 args = Args()

@@ -490,7 +490,6 @@ def test_chain_reads_raise_naming_the_rpc_client():
 # the flags and commands the port refuses, and a word of what each needs
 REFUSED = [
     (["analyze", "--bin-runtime", "-c", "00", "--devices", "2"], "device mesh"),
-    (["analyze", "--bin-runtime", "-c", "00", "--store", "/tmp/s"], "verdict store"),
     (["analyze", "--bin-runtime", "-c", "00", "--host-first-funnel"], "host-first"),
     (["analyze", "--bin-runtime", "-c", "00", "--sparse-pruning"], "laser/ethereum/svm.py"),
     (["analyze", "--bin-runtime", "-c", "00", "--unconstrained-storage"], "account.py"),
@@ -519,7 +518,6 @@ def test_facade_refuses_what_the_port_lacks():
     disassembler = MythrilDisassembler()
     disassembler.load_from_bytecode(KILL, bin_runtime=True)
     for option, needs in (({"mesh_devices": 2}, "device mesh"),
-                          ({"store_dir": "/tmp/s"}, "verdict store"),
                           ({"sparse_pruning": True}, "svm.py"),
                           ({"unconstrained_storage": True}, "account.py"),
                           ({"device_first": False}, "host-first")):
@@ -540,7 +538,7 @@ def test_global_defaults_and_prepass_lanes_are_the_jax_ones(monkeypatch):
     from mythril_tpu.mythril import mythril_analyzer as jax_analyzer
     from mythril_tpu_torch.laser.batch import explore
 
-    refused = {field for field, *_ in port_analyzer._REFUSED} | {"store_dir", "store"}
+    refused = {field for field, *_ in port_analyzer._REFUSED}
     ported = port_analyzer._GLOBAL_DEFAULTS
     assert set(jax_analyzer._GLOBAL_DEFAULTS) == set(ported) | refused
     assert {k: v for k, v in ported.items() if k != "pipeline"} == {

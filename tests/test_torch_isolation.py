@@ -14,7 +14,10 @@ form (analysis/), the analyzer facade
 (mythril/: `MythrilDisassembler`, `MythrilAnalyzer.fire_lasers` over a
 two-contract corpus with its overlapped prepass, `dump_statespace`, and
 the `disassemble` and `function-to-hash` commands), the corpus synthesis,
-the golden host-only leg (`golden_corpus_run`), the dispatcher probe,
+the golden host-only leg (`golden_corpus_run`), the verdict store and
+the corpus linker (a proxy pair banked by `analyze_corpus` into a store
+and read back as exact hits, with its link blocks, and the `graph`
+command on it), the dispatcher probe,
 the hybrid fuzzer and `analyze_corpus`'s overlapped schedule, a query
 through the host solver stack (`get_model`: the bit-blaster and the
 CDCL of the port's own g++ library), the host walk of a contract under
@@ -180,6 +183,23 @@ assert job["report"]["device"]["triggers"] == {"selfdestruct": 1}, job
 assert "# TYPE mtpu_service_waves_total counter" in registry().prometheus_text()
 serve_args = cli.build_parser().parse_args(["serve", "--device", "cpu", "--port", "0"])
 assert cli.serve_refusals(serve_args) == []
+import tempfile
+from mythril_tpu_torch.analysis.static import linkset
+from mythril_tpu_torch.store import store as verdict_store
+pair = corpusgen.proxy_pair(seed=5)
+store_dir = tempfile.mkdtemp()
+banked = corpus.analyze_corpus(pair, use_device=False, store_dir=store_dir)
+hits = corpus.analyze_corpus(pair, use_device=False, store_dir=store_dir)
+assert all(r["complete"] for r in banked) and all(r["store_hit"] for r in hits), hits
+assert banked[0]["link"]["is_proxy"] and banked[0]["link_run"]["proxy_pairs"] == 1, banked[0]
+assert len(verdict_store.open_store(store_dir)) == 2
+graph_dir = tempfile.mkdtemp()
+for code, _, name in pair:
+    open(os.path.join(graph_dir, name.replace("#", "_") + ".hex"), "w").write(code)
+graph_out = io.StringIO()
+with contextlib.redirect_stdout(graph_out):
+    assert cli.main(["graph", graph_dir, "--json"]) == 0
+assert json.loads(graph_out.getvalue())["schema_version"] == linkset.GRAPH_SCHEMA_VERSION
 import importlib, pkgutil
 import mythril_tpu_torch
 for mod in pkgutil.walk_packages(mythril_tpu_torch.__path__, "mythril_tpu_torch."):

@@ -633,8 +633,6 @@ REFUSED = [
     (["--devices", "2"], {}, "parallel/mesh.py"),
     (["--journal", "J"], {}, "service/journal.py"),
     (["--recover"], {}, "service/journal.py"),
-    (["--store", "S"], {}, "store/store.py"),
-    ([], {"MYTHRIL_STORE_DIR": "S"}, "store/store.py"),
     (["--router", "R"], {}, "routing/"),
     ([], {"MYTHRIL_ROUTER_DIR": "R"}, "routing/"),
     (["--kernel-pack", "P"], {}, "compileplane/"),
