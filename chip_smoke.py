@@ -28,6 +28,9 @@
     python3 chip_smoke.py --store           # device, build, the kernel
                                             # phases, then only the store
                                             # phase (9d)
+    python3 chip_smoke.py --routing         # device, build, the kernel
+                                            # phases, then only the routing
+                                            # phase (9e)
     python3 chip_smoke.py --ab-overlap      # device, build, the kernel
                                             # phases, then the 13 vendored
                                             # contracts through `analyze`:
@@ -333,6 +336,33 @@ phase 10 collects them; the worker is ended on every exit.
    nothing. Then `python -m mythril_tpu_torch graph --json` on both proxy
    pairs, each payload but its wall time equal to the JAX `myth graph
    --json` one pinned;
+9e. routing (routing/, observe/routing.py, analysis/solverlab.py), held
+   to tests/test_torch_routing_pinned.json: the fault-suite exploration
+   of the JAX tests/laser/test_solverlab.py (GATED and BRANCHER, 8 lanes,
+   3 waves, 64 steps, seed 7) on the card under query capture, its
+   content addresses the JAX pin's; `route train` on the committed
+   routing log, the artifact byte for byte the JAX one, and `route eval`
+   and `route explain --json` equal to the JAX output; analyze_corpus
+   (router_dir=) on routing_corpus() (prepass first, STORE_WAVES waves,
+   the walks with no device prepass of their own, their queries
+   captured): the decisions, the routed/promoted stamps, the issue sets
+   and the routing records (walls left out) equal to the JAX run's, the
+   host-routed rows out of the corpus prepass, metacoin (predicted near
+   0 s, budget 0.25 s) promoted with a prepass of its own, both prepasses
+   launching slot_write and a substep kernel (`launches_routed`,
+   `launches_promoted`); `solverlab replay` on host, device and race at
+   the command's defaults over both corpora (the host 100% in agreement,
+   the fault suite's host table the JAX pin's; no disagreement, invalid
+   witness or error on the device and race engines), `solverlab tune
+   --sweep grid` (the baseline and 15 trials) and one `tune --watch`
+   pass, a gate-passing tuned artifact installed and read back from
+   mtpu_router_tuned_version, the committed defaults restored
+   (`launches_solverlab`, `launches_tune`: portfolio kernels required);
+   `serve --router` at serve's defaults: suicide settles on the walk pool
+   at admission, bulk_copy's clamped walk overruns (one 100 kB
+   CALLDATACOPY step) and is promoted to a wave, no launch and no wave while either is routed
+   (`launches_serve_routed`, 0 for every kernel), their routed/promoted
+   the JAX engine's pin;
 10. portfolio kernels: portfolio_eval and portfolio_sls on the frontier's
    own programs (the search also on the cube fan's first CUBE_CHECK_Q;
    all of them are timed), on queries the
@@ -4992,6 +5022,483 @@ def serve_store(card):
     return {"admit_ms": round(admit_s * 1e3, 6), "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 9e: the routing triage (routing/, observe/routing.py) and the solver
+# lab (analysis/solverlab.py) behind analyze_corpus, serve --router, route and
+# solverlab
+#: the JAX package's side of the phase (tests/test_torch_routing.py
+#: --pin-routing): the crafted routing log, its artifact, the fault-suite
+#: corpus, the routed corpus run, the served jobs and `route eval/explain`
+ROUTING_PIN = ROOT / "tests" / "test_torch_routing_pinned.json"
+#: the routed corpus runs at the store runs' geometry (STORE_WAVES waves a
+#: phase, no wall budget) and arguments, with the verdict store off
+ROUTING_KW = dict(STORE_KW, store=False)
+#: per vendored contract the (host-walk, device-waves) walls the crafted
+#: routing log teaches the router (environments' rows stay in the log the
+#: pinned artifact was trained on)
+ROUTING_WALLS = {"metacoin": (0.0, 10.0), "suicide": (20.0, 100.0),
+                 "exceptions": (100.0, 5.0), "multi_contracts": (100.0, 5.0),
+                 "environments": (0.0, 10.0)}
+#: the routed corpus's vendored rows
+ROUTING_CORPUS = ("metacoin", "suicide", "exceptions", "multi_contracts")
+#: copies of each crafted record in the log (the ridge fit's weight on them)
+ROUTING_COPIES = 4
+#: the JAX tests/laser/test_solverlab.py fault-suite exploration
+FAULT_SUITE_CODES = ("60003560f81c604214600d57005b600160005500",  # GATED
+                     BRANCHER)
+FAULT_SUITE = dict(lanes_per_contract=8, waves=3, steps_per_wave=64, transaction_count=1,
+                   seed=7)
+#: the served routing jobs: suicide, which the router keeps on the walk
+#: pool and whose walk settles inside its clamp, then bulk_copy
+#: (`bulk_copy_code`), which the router sends there too, predicted near 0 s
+#: (its walk clamped to 1 s), whose walk overruns and is promoted to a wave
+ROUTING_SERVED = ("suicide", "bulk_copy")
+#: the calldata bytes bulk_copy copies into memory in one step
+BULK_COPY_BYTES = 100_000
+#: `serve`'s defaults with a 2 s host walk: the promoted job's walk after
+#: its wave; the routed walks are clamped to 1 s either way
+ROUTING_SERVE = dict(SERVE_DEFAULTS, execution_timeout=2)
+
+
+def routing_rows(names):
+    """The vendored contracts `names` as corpus rows."""
+    from mythril_tpu_torch.laser import symbolic_wave as wave
+
+    return [((wave.CONTRACTS / f"{name}.sol.o").read_text().strip(), "", name)
+            for name in names]
+
+
+def bulk_copy_code(n: int = BULK_COPY_BYTES) -> str:
+    """A contract that copies `n` bytes of calldata into memory, then,
+    when the first calldata word is 42, stores the sum of the first two
+    (an addition that can overflow, so the static answer cannot settle
+    the job before the router sees it). The host walk pours the
+    copy one symbolic byte at a time in a single step (4.6 s at 100 kB on
+    a 2.1 GHz Xeon), and the walk's clamp stops a walk only between steps:
+    a walk clamped to 1 s overruns on any host less than about four times
+    as fast. A clamped walk of a vendored contract ends at about half its
+    clamp, as its solver queries run out of time, unless one query runs
+    past the clamp, which depends on the host's speed."""
+    body = bytes([0x62]) + n.to_bytes(3, "big") + bytes.fromhex("6000600037")
+    body += bytes.fromhex("600035602a14")  # calldata[0:32] == 42
+    dest = len(body) + 4
+    body += bytes([0x60, dest]) + bytes.fromhex("57005b6020356000350160005500")
+    return body.hex()
+
+
+def served_rows():
+    """The served routing jobs (ROUTING_SERVED) as corpus rows."""
+    return routing_rows(ROUTING_SERVED[:1]) + [(bulk_copy_code(), "", ROUTING_SERVED[1])]
+
+
+def routing_corpus():
+    """The routed corpus: four vendored contracts (ROUTING_CORPUS), which
+    the crafted routing log (ROUTING_WALLS) teaches the router to send to
+    the host walk (metacoin, suicide) or to the device waves (exceptions,
+    multi_contracts), and a clean contract the static answer settles
+    before routing. metacoin's host walk is predicted near 0 s, so its
+    budget is the 0.25 s floor; its walk takes seconds, so it overruns and
+    is promoted with a prepass of its own on the card."""
+    from mythril_tpu_torch.analysis.corpusgen import clean_contract
+
+    return routing_rows(ROUTING_CORPUS) + [(clean_contract(0), "", "clean")]
+
+
+def capture_fault_suite(out_dir, device=None):
+    """The fault-suite exploration (GATED and BRANCHER, FAULT_SUITE) with
+    query capture into `out_dir`, from a cold get_model memo; its corpus."""
+    from mythril_tpu_torch.laser.batch.explore import DeviceCorpusExplorer
+    from mythril_tpu_torch.observe import querylog
+    from mythril_tpu_torch.support.model import clear_cache
+
+    clear_cache()
+    querylog.configure_capture(str(out_dir))
+    try:
+        DeviceCorpusExplorer(list(FAULT_SUITE_CODES), device=device, **FAULT_SUITE).run()
+    finally:
+        querylog.configure_capture(None)
+    return querylog.load_corpus(str(out_dir))
+
+
+def routing_results(results):
+    """Per row what the routed corpus run is held to: [name, routed,
+    promoted, issues (SWC, address, title)]."""
+    return json.loads(json.dumps([
+        [r["name"], r.get("routed"), r.get("promoted"),
+         sorted([i["swc-id"], i["address"], i["title"]] for i in r["issues"])]
+        for r in results]))
+
+
+def routing_records(records):
+    """Routing records without their walls: [contract, code_hash, route,
+    features]."""
+    return json.loads(json.dumps([
+        [r["contract"], r["code_hash"], r["outcome"]["route"], r["features"]]
+        for r in records]))
+
+
+def routing_decision(decision):
+    """A RouteDecision as [route, {route: [wall, p_success]}, budget]."""
+    return json.loads(json.dumps([
+        decision.route, {k: [w, p] for k, (w, p) in sorted(decision.expected.items())},
+        decision.budget_s()]))
+
+
+def write_routing_log(pin, path):
+    """The committed routing log (the pin's lines) as a JSONL file."""
+    Path(path).write_text("".join(line + "\n" for line in pin["log"]))
+
+
+def route_cli(argv):
+    """`python -m mythril_tpu_torch route ...` in this process: (exit code,
+    stdout)."""
+    import contextlib
+    import io
+
+    from mythril_tpu_torch.interfaces import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def solverlab_cli(argv):
+    """`python -m mythril_tpu_torch solverlab ... --json` in this process:
+    the report."""
+    rc, out = route_cli(["solverlab", *argv, "--json"])
+    if rc != 0:
+        raise SystemExit(f"solverlab {' '.join(argv)} exited {rc}")
+    return json.loads(out)
+
+
+def replay_checks(label, report, pin_host=None):
+    """The replay rules: the host engine agrees 100% with the live
+    verdicts (and its verdict table equals `pin_host`, where given); the
+    device and race engines show no disagreement and no invalid witness (an
+    unknown is incomplete, never a disagreement)."""
+    tables = report["replay"]
+    host = tables["host"]
+    if host["agreement_pct"] != 100.0:
+        raise SystemExit(f"[routing] {label}: the host replay agrees "
+                         f"{host['agreement_pct']}%: {report['disagreements']}")
+    if pin_host is not None and host["verdicts"] != pin_host:
+        raise SystemExit(f"[routing] {label}: host verdicts {host['verdicts']} != the JAX "
+                         f"pin's {pin_host}")
+    for engine in ("device", "race"):
+        table = tables[engine]
+        if table["agreement"]["disagree"] or table["verdicts"].get("invalid") \
+                or table["verdicts"].get("error"):
+            raise SystemExit(f"[routing] {label}: the {engine} engine disagrees or "
+                             f"fails: {table}; {report['disagreements']}")
+
+
+def routing_lab(card, pin, fault_dir, walk_dir):
+    """solverlab on the card over both corpora (the fault suite's and the
+    routed corpus run's walk queries): replay on host, device and race at
+    the command's defaults; the fault suite's grid sweep (the baseline and
+    one trial for each TUNE_GRID value off the defaults) and one --watch
+    pass, whose winner, if any, promotes only through gate_overrides; a
+    gate-passing tuned artifact installed by maybe_install_tuned, read back
+    from mtpu_router_tuned_version; the committed defaults restored."""
+    import tempfile
+
+    from mythril_tpu_torch.analysis import solverlab
+    from mythril_tpu_torch.laser.smt.solver import portfolio
+    from mythril_tpu_torch.observe import querylog
+    from mythril_tpu_torch.observe.registry import registry
+    from mythril_tpu_torch.routing import tuning
+
+    out = {"launches": {}, "seconds": {}}
+    reset_launches()
+    t0 = time.perf_counter()
+    replays = {}
+    for label, corpus_dir in (("fault suite", fault_dir), ("walks", walk_dir)):
+        replays[label] = report = solverlab_cli(
+            ["replay", "--corpus", str(corpus_dir), "--engines", "host,device,race"])
+        replay_checks(label, report,
+                      pin["fault_suite"]["host_verdicts"] if label == "fault suite" else None)
+        log(f"[routing] solverlab replay of the {label} corpus ({report['queries']} queries): "
+            + "; ".join(f"{e} {t['verdicts']} agree {t['agreement']} {t['wall_s']} s"
+                        for e, t in report["replay"].items()))
+    sync()
+    out["launches"]["solverlab"] = read_launches()
+    out["seconds"]["solverlab"] = round(time.perf_counter() - t0, 3)
+    if not (out["launches"]["solverlab"]["portfolio_eval"]
+            + out["launches"]["solverlab"]["portfolio_sls"]):
+        raise SystemExit(f"the device replay launched no portfolio kernel: {out['launches']}")
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        sweep = solverlab_cli(["tune", "--corpus", str(fault_dir), "--sweep", "grid",
+                               "--candidates", "64"])
+        want_trials = 1 + sum(v != portfolio.PORTFOLIO_DEFAULTS.get(k)
+                              for k, axis in solverlab.TUNE_GRID.items() for v in axis)
+        if len(sweep["trials"]) != want_trials:
+            raise SystemExit(f"the grid sweep ran {len(sweep['trials'])} trials, not "
+                             f"{want_trials}")
+        log("[routing] solverlab tune --sweep grid: " + "; ".join(
+            f"{t['knobs'] or 'baseline'} decided {t['decided']} {t['wall_s']} s"
+            for t in sweep["trials"]))
+        with tempfile.TemporaryDirectory() as tuned_dir:
+            watch = solverlab_cli(["tune", "--corpus", str(fault_dir), "--watch", "--rounds",
+                                   "1", "--watch-out", tuned_dir, "--candidates", "64"])
+            promoted = watch["promoted"]
+            gate = None
+            if promoted is None:
+                # no winner beat the defaults: the best trial off them goes
+                # through the same gate, and is saved only if it passes
+                best = next(t for t in sweep["trials"] if not t.get("baseline"))
+                gate = tuning.gate_overrides(querylog.load_corpus(str(fault_dir)),
+                                             best["knobs"], candidates=64)
+                if not gate["pass"]:
+                    raise SystemExit(f"the gate refused {best['knobs']}: {gate}")
+                promoted = tuning.save_tuned(tuned_dir, best["knobs"], gate={
+                    k: gate[k] for k in ("queries", "agree", "disagree", "incomplete",
+                                         "pass")})
+            version = tuning.maybe_install_tuned(tuned_dir)
+            gauge = registry().value("mtpu_router_tuned_version")
+            installed = {k: portfolio.PORTFOLIO_DEFAULTS[k]
+                         for k in json.loads(Path(promoted).read_text())["overrides"]}
+        log(f"[routing] solverlab tune --watch: rounds {watch['rounds']}; promoted "
+            f"{watch['promoted']}; gate of the best trial {gate}; installed v{version} "
+            f"{installed}, mtpu_router_tuned_version {gauge}")
+        if version is None or gauge != version or portfolio.tuned_version() != version:
+            raise SystemExit(f"the tuned artifact did not install: v{version}, gauge {gauge}")
+    finally:
+        portfolio.reset_tuned_defaults()
+    sync()
+    out["launches"]["tune"] = read_launches()
+    out["seconds"]["tune"] = round(time.perf_counter() - t0, 3)
+    if not (out["launches"]["tune"]["portfolio_eval"] + out["launches"]["tune"]["portfolio_sls"]):
+        raise SystemExit(f"the tune launched no portfolio kernel: {out['launches']['tune']}")
+    out["replays"] = {label: {e: t["verdicts"] for e, t in r["replay"].items()}
+                      for label, r in replays.items()}
+    return out
+
+
+def routed_corpus(card, pin, router_dir, walk_dir):
+    """analyze_corpus(router_dir=) on the card over routing_corpus(),
+    prepass first, at the store runs' geometry, its walks with no device
+    prepass of their own (as the JAX pin's walks on the CPU), its queries
+    captured into `walk_dir`; held to the JAX pin in the decisions, the
+    routed/promoted stamps, the issue sets and the routing records (walls
+    left out). The host-routed rows must leave the corpus prepass, which
+    must launch slot_write and a substep kernel; the promotion prepass must
+    run the overrunning row alone and launch them too."""
+    from mythril_tpu_torch import observe
+    from mythril_tpu_torch.analysis import corpus
+    from mythril_tpu_torch.laser.smt.solver import device_race
+    from mythril_tpu_torch.observe import querylog
+    from mythril_tpu_torch.support.support_args import args
+
+    rows = routing_corpus()
+    prepass_rows, plans, promo = [], [], {}
+    real_prepass, real_plan, real_promote = (corpus.corpus_device_prepass, corpus._route_plan,
+                                             corpus._promote_overruns)
+
+    def prepass(contracts, *a, **kw):
+        # no wall budget on either prepass (the promotion prepass's is the
+        # default's): the wave cap alone ends a phase, as in the JAX pin
+        prepass_rows.append([contracts[i][2] for i, _ in corpus._runnable_rows(contracts)])
+        return real_prepass(contracts, *a, **dict(kw, budget_s=float("inf")))
+
+    def plan(*a, **kw):
+        plans.append(real_plan(*a, **kw))
+        return plans[-1]
+
+    def promote(*a, **kw):
+        sync()
+        before = read_launches()
+        t0 = time.perf_counter()
+        real_promote(*a, **kw)
+        sync()
+        promo["seconds"] = round(time.perf_counter() - t0, 3)
+        promo["launches"] = {k: v - before[k] for k, v in read_launches().items()}
+
+    cpus, restore = corpus._effective_cpus, args.device_prepass
+    corpus._effective_cpus = lambda: 1
+    corpus.corpus_device_prepass, corpus._route_plan = prepass, plan
+    corpus._promote_overruns = promote
+    args.device_prepass = "never"
+    observe.routing_log().clear()
+    querylog.configure_capture(str(walk_dir))
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = corpus.analyze_corpus(rows, router_dir=router_dir, waves=STORE_WAVES,
+                                        device_budget_s=float("inf"), **ROUTING_KW)
+        device_race.wait_idle()
+        sync()
+    finally:
+        querylog.configure_capture(None)
+        corpus._effective_cpus, args.device_prepass = cpus, restore
+        corpus.corpus_device_prepass, corpus._route_plan = real_prepass, real_plan
+        corpus._promote_overruns = real_promote
+    secs = time.perf_counter() - t0
+    total = read_launches()
+    promoted = promo.get("launches") or {k: 0 for k in total}
+    routed = {k: v - promoted[k] for k, v in total.items()}
+    (route_plan, decisions), = plans
+    got = {"decisions": {rows[i][2]: routing_decision(d) for i, d in decisions.items()},
+           "results": routing_results(results),
+           "records": routing_records(observe.routing_log().tail())}
+    log(f"[routing] routed corpus: {secs:.3f} s; decisions "
+        f"{ {k: v[0] for k, v in got['decisions'].items()} }; corpus prepass rows "
+        f"{prepass_rows}; rows {[g[:3] for g in got['results']]}; walls "
+        f"{[r.get('wall_s') for r in results]}; launches routed {routed}, promotion prepass "
+        f"({promo.get('seconds')} s) {promoted} on {card}")
+    for key, value in got.items():
+        if value != pin["corpus"][key]:
+            raise SystemExit(f"the routed corpus's {key} differ from the JAX pin: {value} != "
+                             f"{pin['corpus'][key]}")
+    host_rows = sorted(name for name, d in got["decisions"].items() if d[0] == "host-walk")
+    promoted_rows = [r["name"] for r in results if r.get("promoted")]
+    if prepass_rows[0] != [n for n, d in got["decisions"].items() if d[0] == "device-waves"] \
+            or prepass_rows[1:] != [promoted_rows] or not promoted_rows:
+        raise SystemExit(f"the prepasses ran {prepass_rows}: host rows {host_rows}, promoted "
+                         f"{promoted_rows}")
+    for label, spent in (("corpus", routed), ("promotion", promoted)):
+        if not (spent["slot_write"] and spent["fused_substep"] + spent["block_substep"]):
+            raise SystemExit(f"the {label} prepass launched no slot_write or substep "
+                             f"kernel: {spent}")
+    return {"launches": {"routed": routed, "promoted": promoted},
+            "seconds": {"routed": round(secs, 3), "promoted": promo.get("seconds")}}
+
+
+def served_routing(card, pin, router_dir):
+    """`serve --router DIR` at serve's defaults (the host walk at 2 s:
+    ROUTING_SERVE): `suicide` is routed to the
+    walk pool at admission and settles there (no wave, no launch);
+    `bulk_copy` is routed, its walk clamped to 1 s overruns, and it is
+    promoted to the head of the wave queue and runs a wave on the card;
+    nothing launches while it is routed. The jobs' routed/promoted equal
+    the JAX engine's pin."""
+    from mythril_tpu_torch.service.client import ServiceClient
+    from mythril_tpu_torch.service.engine import ServiceConfig
+    from mythril_tpu_torch.service.server import AnalysisServer
+
+    codes = {name: code for code, _, name in served_rows()}
+    srv = AnalysisServer(ServiceConfig(router_dir=router_dir, **ROUTING_SERVE)).start()
+    engine = srv.engine
+    at_promotion = {}
+    real_finalize = engine._finalize
+
+    def finalize(job, track, outcome, host_result):
+        if track is None and job.routed and not job.promoted:
+            sync()
+            at_promotion[job.id] = (read_launches(), engine.waves_total,
+                                    time.monotonic() - job.started_t, job.route_budget_s)
+        return real_finalize(job, track, outcome, host_result)
+
+    engine._finalize = finalize
+    docs, launches = {}, {}
+    try:
+        if engine._router is None:
+            raise SystemExit("serve --router loaded no router")
+        client = ServiceClient(srv.url)
+        for name in ROUTING_SERVED:
+            sync()
+            reset_launches()
+            waves = engine.waves_total
+            t0 = time.perf_counter()
+            job_id = client.submit(codes[name])
+            doc = client.report(job_id, wait_s=SERVE_READY_S)
+            sync()
+            secs = time.perf_counter() - t0
+            routed_launches, routed_waves, walk_s, budget = at_promotion[job_id]
+            docs[name] = doc
+            launches[name] = {"routed": routed_launches, "job": read_launches(),
+                              "waves_routed": routed_waves - waves,
+                              "waves": engine.waves_total - waves, "seconds": round(secs, 3),
+                              "walk": round(walk_s, 3)}
+            log(f"[routing] served {name}: {doc['state']} routed {doc.get('routed')} promoted "
+                f"{doc.get('promoted')} in {secs:.3f} s (the routed walk {walk_s:.3f} s, "
+                f"budget {budget:.3f} s); waves while routed "
+                f"{routed_waves - waves}, in all {engine.waves_total - waves}; launches "
+                f"while routed {routed_launches}, in all {launches[name]['job']} on {card}")
+    finally:
+        srv.close()
+    got = {name: {"routed": doc.get("routed"), "promoted": doc.get("promoted")}
+           for name, doc in docs.items()}
+    if got != pin["serve"]["jobs"]:
+        raise SystemExit(f"the served jobs' routing {got} differs from the JAX pin "
+                         f"{pin['serve']['jobs']}; the routed walks took "
+                         f"{ {n: spent['walk'] for n, spent in launches.items()} } s")
+    if any(doc["state"] != "done" for doc in docs.values()):
+        raise SystemExit(f"a served routing job did not settle done: {docs}")
+    for name, spent in launches.items():
+        if any(spent["routed"].values()) or spent["waves_routed"]:
+            raise SystemExit(f"the routed job {name} launched or waved while routed: {spent}")
+    walked, promoted = (launches[name] for name in ROUTING_SERVED)
+    if walked["waves"] or any(walked["job"].values()) or not promoted["waves"] \
+            or not promoted["job"]["slot_write"]:
+        raise SystemExit(f"the walk-pool job must run no wave and the promoted job a wave on "
+                         f"the card: {launches}")
+    return {"launches": {"serve_routed": walked["routed"], "serve_promoted": promoted["job"]},
+            "seconds": {name: spent["seconds"] for name, spent in launches.items()}}
+
+
+def phase_routing(card):
+    """9e: the routing triage and the solver lab on the card. The
+    fault-suite exploration captured (its content addresses the JAX pin's);
+    `route train` on the committed log (the artifact byte for byte the JAX
+    one); the routed corpus (`routed_corpus`, its walk queries captured);
+    `route eval` and `route explain --json` on the log (the JAX output);
+    the solver lab over both corpora (`routing_lab`); `serve --router`
+    (`served_routing`)."""
+    import hashlib
+    import tempfile
+
+    pin = json.loads(ROUTING_PIN.read_text())
+    out = {"launches": {}, "seconds": {}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        reset_launches()
+        t0 = time.perf_counter()
+        from mythril_tpu_torch.support.support_args import args
+
+        restore, args.deterministic_solving = args.deterministic_solving, True
+        try:
+            fault = capture_fault_suite(tmp / "fault")
+        finally:
+            args.deterministic_solving = restore
+        shas = sorted(a["sha"] for a in fault)
+        log(f"[routing] fault-suite capture: {time.perf_counter() - t0:.3f} s, "
+            f"{len(shas)} queries {[s[:12] for s in shas]}, launches {read_launches()} on "
+            f"{card}")
+        if shas != pin["fault_suite"]["shas"]:
+            raise SystemExit(f"the fault-suite content addresses {shas} differ from the JAX "
+                             f"pin's {pin['fault_suite']['shas']}")
+        write_routing_log(pin, tmp / "routing.jsonl")
+        rc, text = route_cli(["route", "train", "--log", str(tmp / "routing.jsonl"),
+                              "--out", str(tmp / "router"), "--json"])
+        artifact = Path(json.loads(text)["artifact"])
+        digest = hashlib.sha256(artifact.read_bytes()).hexdigest()
+        if rc != 0 or artifact.name != pin["artifact"]["name"] \
+                or digest != pin["artifact"]["sha256"]:
+            raise SystemExit(f"route train wrote {artifact.name} ({digest}), not the JAX "
+                             f"artifact {pin['artifact']}")
+        for mode in ("eval", "explain"):
+            rc, text = route_cli(["route", mode, "--log", str(tmp / "routing.jsonl"),
+                                  "--router", str(tmp / "router"), "--json"])
+            if rc != 0 or json.loads(text) != pin["route"][mode]:
+                raise SystemExit(f"route {mode} --json differs from the JAX output: {text}")
+        log(f"[routing] route train: {artifact.name} equal to the JAX artifact "
+            f"(sha256 {digest[:16]}); route eval and explain --json equal the JAX output")
+        corpus_run = routed_corpus(card, pin, str(tmp / "router"), tmp / "walks")
+        lab = routing_lab(card, pin, tmp / "fault", tmp / "walks")
+        served = served_routing(card, pin, str(tmp / "router"))
+    for part in (corpus_run, lab, served):
+        out["launches"].update(part["launches"])
+        out["seconds"].update(part["seconds"])
+    out["replays"] = lab["replays"]
+    out["seconds"]["phase"] = round(time.perf_counter() - t_phase, 3)
+    log(f"[routing] the phase: {out['seconds']}")
+    return out
+
+
 def phase_bignum(card):
     """The bit-serial u256 loops at full width (candidates for kernels)."""
     import numpy as np
@@ -5596,6 +6103,10 @@ def main() -> int:
         log(f"[store] {time.perf_counter() - t0:.1f} s in all")
         print(json.dumps(store["launches"]))
         return 0
+    if args == ["--routing"]:
+        routed = phase_routing(card)
+        print(json.dumps(routed["launches"]))
+        return 0
     if args == ["--probes"]:
         t0 = time.perf_counter()
         probes = phase_probes(card)
@@ -5643,6 +6154,7 @@ def full_run(kind, card, kern, host_us, refs) -> int:
     serve = phase("serve", phase_serve, card)
     probes = phase("probes", phase_probes, card)
     store = phase("store", phase_store, card)
+    routed = phase("routing", phase_routing, card)
     kern.update(phase("portfolio kernels", phase_portfolio_kernels, card, flip["programs"],
                       flip["solving"], refs))
     phase("engine differential", phase_engine_differential, card)
@@ -5694,6 +6206,10 @@ def full_run(kind, card, kern, host_us, refs) -> int:
         "launches_store": store["launches"]["warm"][name],
         "launches_store_hit": store["launches"]["third"][name],
         "launches_serve_store_hit": serve["launches_store_hit"][name],
+        # 9e: the solver lab's replays and sweep, the routed corpus's
+        # prepass and its promotion prepass, a served job while routed (0)
+        **{f"launches_{path}": routed["launches"][path][name]
+           for path in ("solverlab", "tune", "routed", "promoted", "serve_routed")},
         **({"launches_many": main_path["launches"]["slot_write_many"],
             "launches_many_symbolic_wave": sym_wave["launches"]["slot_write_many"],
             "launches_many_explore": explore["launches"]["slot_write_many"],

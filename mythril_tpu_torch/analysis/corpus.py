@@ -44,9 +44,18 @@ Where the port differs, and how it says so:
   contract is `complete: False`, as in the JAX package;
 - the multi-chip scheduler (`mesh_groups > 1`) raises, as the explorer's
   other unported options do;
-- the pooled walk (`processes > 1`) raises, and the routing triage (the
-  JAX `router_dir`/`router` arguments) is not ported and has no switch
-  here;
+- the pooled walk (`processes > 1`) raises;
+- the learned router (routing/, `router_dir`, `router`) is the JAX
+  one: host-routed rows leave the device prepass, a host-routed walk
+  that overran its budget (or raised) gets one promotion prepass on the
+  card (`_promote_overruns`), and every result writes a routing record
+  (`_emit_routing_records`). A router that raises while it loads or
+  decides is recorded in the DegradationLog (`router-failed`) and a
+  routing record that cannot be built `routing-record-failed`, where
+  the JAX package only logs them; the built-in ladder stands for that
+  call, as in the JAX package. A promotion prepass that fails raises,
+  as every prepass failure does here (the JAX package logs it and
+  keeps the walk's result);
 - a store that cannot be opened or read, and a verdict that cannot be
   written back, are recorded in the DegradationLog (`store-unavailable`,
   `store-writeback-failed`), where the JAX package only logs them; the
@@ -75,6 +84,7 @@ Where the port differs, and how it says so:
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import multiprocessing as mp
 import os
@@ -1154,6 +1164,8 @@ def analyze_corpus(
     device=None,
     store_dir: Optional[str] = None,
     store: Optional[bool] = None,
+    router_dir: Optional[str] = None,
+    router: Optional[bool] = None,
 ) -> List[Dict]:
     """Analyze `contracts` = [(runtime_code_hex, creation_code_hex,
     name), ...]: one striped device prepass on `device` (None: the
@@ -1185,7 +1197,14 @@ def analyze_corpus(
     the verdict store's directory; `store` False (or `args.store` off,
     `--no-store`) turns the tier off: no lookup, no incremental plan, no
     write-back. Exact hits carry `store_hit`, incremental results
-    `store_incremental` and the plan under `store`."""
+    `store_incremental` and the plan under `store`.
+
+    `router_dir` (falling back to the process router,
+    routing/router.py `configured_router`: MYTHRIL_ROUTER_DIR) holds the
+    learned router's artifacts; `router` False turns it off. With no
+    verifying artifact, or without the device axis, the ladder is the
+    router-less one, bit for bit. A routed result carries `routed`, a
+    promoted one `promoted`."""
     from mythril_tpu_torch.analysis.static import static_answer_enabled
     from mythril_tpu_torch.analysis.static.summary import (
         analysis_config_fingerprint,
@@ -1275,6 +1294,22 @@ def analyze_corpus(
         settled = {**static_answers, **store_answers}
         for i in static_answers:
             prepass_rows[i] = ("", contracts[i][1], contracts[i][2])
+        # the learned tier-ladder router: every contract the triage
+        # tiers did not settle is priced host-walk against device-waves,
+        # and host-routed rows leave the device prepass (whose budget
+        # scales with the runnable row count); mis-routes are repaired
+        # after the walks by _promote_overruns
+        corpus_router = (
+            _load_corpus_router(router_dir)
+            if router is not False and use_device
+            else None
+        )
+        route_plan, route_decisions = _route_plan(
+            corpus_router, contracts, settled, linkset
+        )
+        for i, planned in route_plan.items():
+            if planned == "host-walk":
+                prepass_rows[i] = ("", contracts[i][1], contracts[i][2])
 
         def incremental(i, result):
             plan = store_plans.get(i)
@@ -1335,6 +1370,11 @@ def analyze_corpus(
                 results.append(incremental(i, walk(i, outcome, use_device)))
         if prepass:
             _merge_prepass_witnesses(results, contracts, prepass, address)
+        if route_plan:
+            _promote_overruns(
+                results, contracts, route_plan, route_decisions,
+                corpus_router, prepass_kw, use_device,
+            )
     skipped = 0
     for i, result in enumerate(results):
         # per-contract completion status, first-class in the result
@@ -1353,6 +1393,16 @@ def analyze_corpus(
         )
     if linkset is not None:
         _attach_link_meta(results, contracts, linkset)
+    # router decisions feed their own training data: planned rows
+    # settle as routed-<tier> / promoted-<tier> in the routing log,
+    # stamped AFTER the store write-back so that banked verdicts stay
+    # route-free (a store hit replays as store-hit)
+    for i, planned in route_plan.items():
+        result = results[i]
+        if result.get("skipped") or result.get("promoted"):
+            continue
+        result["routed"] = planned
+    _emit_routing_records(results, contracts, linkset=linkset)
     if skipped and on_timeout == "fail":
         from mythril_tpu_torch.exceptions import DeadlineExpiredError
 
@@ -1361,6 +1411,182 @@ def analyze_corpus(
             "deadline (--on-timeout=fail)"
         )
     return results
+
+
+def _load_corpus_router(router_dir: Optional[str]):
+    """The router for this corpus: `router_dir`'s newest verifying
+    artifact, else the process router; None keeps the built-in ladder.
+    A refused artifact is counted by the artifact layer; a load that
+    raises is recorded `router-failed`."""
+    from mythril_tpu_torch.routing import router as _routing_rt
+
+    try:
+        return (
+            _routing_rt.load_router(router_dir)
+            if router_dir
+            else _routing_rt.configured_router()
+        )
+    except Exception as why:
+        _routing_rt.record_failure("corpus-router-load", why)
+        return None
+
+
+def _route_plan(corpus_router, contracts, settled, linkset):
+    """({row: route}, {row: RouteDecision}) for every runnable row the
+    triage tiers did not settle, as the JAX corpus plan prices them
+    (the corpus link block rides into the features)."""
+    from mythril_tpu_torch import observe
+    from mythril_tpu_torch.routing.router import record_failure
+
+    route_plan: Dict[int, str] = {}
+    route_decisions: Dict[int, object] = {}
+    if corpus_router is None:
+        return route_plan, route_decisions
+    for i, (code, _creation, name) in enumerate(contracts):
+        if i in settled:
+            continue
+        code_norm = code[2:] if code.startswith("0x") else code
+        if len(code_norm) < 8:
+            continue  # not a runnable prepass row anyway
+        try:
+            link_meta = None
+            if linkset is not None:
+                link_meta = linkset.node_meta(
+                    "0x" + hashlib.sha256(bytes.fromhex(code_norm)).hexdigest()
+                )
+            decision = corpus_router.decide(
+                observe.routing_features_for(code, link=link_meta),
+                tiers=["host-walk", "device-waves"],
+            )
+        except Exception as why:
+            record_failure("corpus-route-decision", why, contract=name)
+            continue
+        if decision is None:
+            continue
+        route_plan[i] = decision.route
+        route_decisions[i] = decision
+    if route_plan:
+        log.info(
+            "Router v%d: %d host-walk / %d device-waves of %d routable "
+            "contract(s)",
+            corpus_router.version,
+            sum(1 for r in route_plan.values() if r == "host-walk"),
+            sum(1 for r in route_plan.values() if r == "device-waves"),
+            len(route_plan),
+        )
+    return route_plan, route_decisions
+
+
+def _promote_overruns(
+    results: List[Dict],
+    contracts: List[Tuple[str, str, str]],
+    route_plan: Dict[int, str],
+    route_decisions: Dict[int, object],
+    corpus_router,
+    prepass_kw: Dict,
+    use_device: bool,
+) -> None:
+    """The router's in-flight repair tier: a host-routed contract whose
+    walk errored or overran the decision's predicted budget
+    (`RouteDecision.budget_s`, slack times the predicted wall) was
+    mis-routed, so it gets the device waves it was denied: one prepass
+    over just the overrun rows (ownership off), witnesses merged in
+    place, the result stamped ``promoted`` (its routing record settles
+    as ``promoted-device-waves``). Regret, the wall burnt beyond the
+    budget, feeds mtpu_router_regret_seconds_total. A promotion prepass
+    that fails raises."""
+    from mythril_tpu_torch.support import resilience
+
+    deadline = prepass_kw["deadline"]
+    if not use_device or resilience.interrupted_reason(deadline) is not None:
+        return
+    overrun: List[int] = []
+    for i, planned in route_plan.items():
+        if planned != "host-walk":
+            continue
+        result = results[i]
+        if result.get("skipped"):
+            continue
+        decision = route_decisions.get(i)
+        budget = decision.budget_s() if decision is not None else 0.0
+        wall = result.get("wall_s") or 0.0
+        if result.get("error") is not None or (budget and wall > budget):
+            overrun.append(i)
+            if budget and wall > budget:
+                corpus_router.note_regret(wall - budget)
+    if not overrun:
+        return
+    promo_rows = [
+        (contracts[i][0] if i in overrun else "", contracts[i][1], contracts[i][2])
+        for i in range(len(contracts))
+    ]
+    promo = corpus_device_prepass(
+        promo_rows,
+        stop_event=resilience.shutdown_event(),
+        **dict(prepass_kw, ownership=False, selector_masks=None),
+    )
+    _merge_prepass_witnesses(results, contracts, promo, prepass_kw["address"])
+    for i in overrun:
+        results[i]["promoted"] = "device-waves"
+        corpus_router.note_promotion("host-walk", "device-waves")
+
+
+def _emit_routing_records(
+    results: List[Dict],
+    contracts: List[Tuple[str, str, str]],
+    linkset=None,
+) -> None:
+    """One routing-feature record per analyzed contract
+    (observe/routing.py): static features joined with the route taken
+    and the outcome, with a journey skeleton under a fresh journey id
+    (admission, route, settle), as the JAX corpus driver writes them. A
+    record that cannot be built is recorded `routing-record-failed`;
+    the run goes on."""
+    from mythril_tpu_torch import observe
+    from mythril_tpu_torch.support.resilience import (
+        DegradationLog,
+        DegradationReason,
+    )
+
+    if not observe.enabled():
+        return
+    for (code, _creation, name), result in zip(contracts, results):
+        try:
+            code_norm = code[2:] if code.startswith("0x") else code
+            try:
+                digest = hashlib.sha256(bytes.fromhex(code_norm or "")).hexdigest()
+            except ValueError:
+                digest = ""
+            outcome = observe.routing_outcome_for(result)
+            journey_id = observe.new_journey_id()
+            observe.journey_event(journey_id, "admission", "corpus", contract=name)
+            observe.journey_event(
+                journey_id, outcome.get("route", "?"), "routed",
+                wall_s=outcome.get("wall_s"),
+            )
+            observe.journey_event(
+                journey_id, "settle",
+                "done" if not outcome.get("error") else "failed",
+                issues=outcome.get("issues"),
+            )
+            link_meta = (
+                linkset.node_meta("0x" + digest) if linkset is not None else None
+            )
+            observe.routing_log().record(
+                contract=name,
+                code_hash=digest,
+                features=observe.routing_features_for(code_norm, link=link_meta),
+                outcome=outcome,
+                journey_id=journey_id,
+            )
+        except Exception as why:
+            log.warning("routing record failed for %s: %s", name, why)
+            DegradationLog().record(
+                DegradationReason.ROUTING_RECORD_FAILED,
+                site="corpus-routing-record",
+                detail=str(why),
+                contract=name,
+            )
 
 
 @contextmanager

@@ -1,7 +1,8 @@
 """`python -m mythril_tpu_torch analyze`: runtime bytecode in, the JAX
 package's `Report` out, through the analyzer facade, as the JAX `myth
-analyze` runs it; `lint`, `graph`, `serve`, `submit`, `disassemble`,
-`list-detectors`, `function-to-hash` and `version`.
+analyze` runs it; `lint`, `graph`, `serve`, `submit`, `solverlab`,
+`route`, `disassemble`, `list-detectors`, `function-to-hash` and
+`version`.
 
 `analyze` loads the bytecode (`-c`, or `-f` once per contract of a
 corpus) through `MythrilDisassembler` and runs `MythrilAnalyzer`
@@ -37,7 +38,10 @@ on-chain data (the default, as in the JAX package) makes storage concrete
 and every chain read fails, `--no-onchain-data` keeps storage symbolic.
 `--store DIR` (or MYTHRIL_STORE_DIR) banks every cleanly completed
 contract's verdict in the verdict store (store/), as the JAX facade
-does; `--no-store` turns the tier off.
+does; `--no-store` turns the tier off. `--observe-out DIR` writes each
+contract's routing-feature record to DIR/routing_features.jsonl (and
+the flight recorder's dumps there); `--no-observe` turns the telemetry
+off, as in the JAX command.
 
 Refused, with the module each needs named (exit 2), never ignored:
 Solidity input, `--truffle`, `--solv`, `--solc-json` (solc), `-a`,
@@ -68,13 +72,22 @@ unless `--device cpu`; `submit` sends bytecode to a running service and
 prints the report as JSON. `serve --store DIR` (or MYTHRIL_STORE_DIR)
 settles repeat submissions at admission from the verdict store and banks
 every completed walk, as the JAX service does; `--no-store` turns the
-tier off. The flags of modules the port does not have
-are refused with an error that names the module, rather than ignored:
-`--devices N` above 1 (the device mesh), `--journal` and `--recover`
-(service/journal.py), `--router` (routing/), `--kernel-pack` and
-`--kernel-cache` (the compile plane), and their environment variables;
-so is `submit --address` (the chain RPC client). `--no-router` and
-`--no-aot` ask for what the port always does, and are accepted.
+tier off. `serve --router DIR` (or MYTHRIL_ROUTER_DIR) mounts the
+learned router (routing/) at admission and installs a tuned-defaults
+artifact from the same directory; `--no-router` turns it off. The flags
+of modules the port does not have are refused with an error that names
+the module, rather than ignored: `--devices N` above 1 (the device
+mesh), `--journal` and `--recover` (service/journal.py),
+`--kernel-pack` and `--kernel-cache` (the compile plane), and their
+environment variables; so is `submit --address` (the chain RPC client).
+`--no-aot` asks for what the port always does, and is accepted.
+
+`solverlab replay|report|tune` replays a query corpus captured with
+`--capture-queries` (analysis/solverlab.py: the host CDCL, the card's
+portfolio and the race funnel, on `--device`), and `tune --watch`
+promotes gate-passing tuned defaults; `route train|eval|explain` trains
+a router artifact from a routing log, scores one against a log and
+explains one decision (routing/), as the JAX commands do.
 """
 
 from __future__ import annotations
@@ -93,7 +106,6 @@ SERVE_REFUSED = (
     ("--devices N > 1", "the device mesh (parallel/mesh.py, topology.py)"),
     ("--journal", "the durable job journal (service/journal.py)"),
     ("--recover", "the durable job journal (service/journal.py)"),
-    ("--router / MYTHRIL_ROUTER_DIR", "the learned router (routing/)"),
     ("--kernel-pack", "the compile plane (compileplane/)"),
     ("--kernel-cache / MYTHRIL_KERNEL_CACHE", "the compile plane (compileplane/)"),
 )
@@ -328,6 +340,18 @@ def build_parser() -> argparse.ArgumentParser:
         "capped queries are recorded SPRINT_PREEMPTED and retried next wave",
     )
     options.add_argument(
+        "--observe-out", default=None, metavar="DIR",
+        help="Telemetry output directory: per-contract routing-feature "
+        "records (routing_features.jsonl, the host/device cost-model "
+        "training set) plus automatic flight-recorder dumps on deadline "
+        "degradations",
+    )
+    options.add_argument(
+        "--no-observe", action="store_true",
+        help="Disable telemetry recording (spans, solver attribution, "
+        "routing records): issue sets are identical with and without",
+    )
+    options.add_argument(
         "--capture-queries", default=None, metavar="DIR",
         help="Solver query flight recorder: serialize every solved SMT query "
         "into DIR as a content-addressed, replayable artifact",
@@ -462,6 +486,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_serve(commands)
     _add_submit(commands)
+    _add_solverlab(commands)
+    _add_route(commands)
     return parser
 
 
@@ -614,11 +640,17 @@ def _add_serve(commands) -> None:
     )
     serve.add_argument(
         "--router", default=None, metavar="DIR",
-        help="learned tier-ladder router artifacts (not ported: refused)",
+        help="learned tier-ladder router artifacts (`route train`; env "
+        "MYTHRIL_ROUTER_DIR): admission prices each job per tier from the "
+        "routing-log cost model and sends cheap-predicted work straight to "
+        "the host walk; a tuned solver-default artifact (`solverlab tune "
+        "--watch`) in the same DIR installs too. Absent/refused artifacts "
+        "keep today's ladder bit for bit",
     )
     serve.add_argument(
         "--no-router", action="store_true",
-        help="no learned router tier (the port has none)",
+        help="disable the learned router tier even when an artifact "
+        "directory is configured (the parity baseline)",
     )
     serve.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -676,6 +708,139 @@ def _add_submit(commands) -> None:
     )
 
 
+def _add_solverlab(commands) -> None:
+    """`solverlab`: the JAX package's `myth solverlab` flags, and
+    `--device`."""
+    lab = commands.add_parser(
+        "solverlab",
+        help="Offline solver replay lab: re-run a corpus captured with "
+        "--capture-queries against any engine matrix (host CDCL, the card's "
+        "portfolio, the full race funnel) with per-engine agreement tables "
+        "and the funnel-loss waterfall",
+    )
+    lab.add_argument(
+        "mode", choices=["replay", "report", "tune"], nargs="?", default="replay",
+        help="replay: re-solve the corpus on the chosen engines; report: the "
+        "captured waterfall alone, no solving; tune: grid/random sweep of the "
+        "diversified-portfolio knobs over the corpus with a ranked table",
+    )
+    lab.add_argument(
+        "--corpus", required=True, metavar="DIR",
+        help="the --capture-queries output directory to load",
+    )
+    lab.add_argument(
+        "--engines", default="host,device",
+        help="comma list of host|device|race (default host,device)",
+    )
+    lab.add_argument(
+        "--filter", default=None, metavar="KEY=VALUE",
+        help="replay only matching artifacts: reason=<LOSS_REASON> or "
+        "origin=<flip-frontier|module|memo-miss>",
+    )
+    lab.add_argument(
+        "--shard", default=None, metavar="I/N",
+        help="replay only this host's content-hash shard",
+    )
+    lab.add_argument(
+        "--timeout-ms", type=int, default=10_000,
+        help="per-query budget for the host/race engines",
+    )
+    lab.add_argument(
+        "--candidates", type=int, default=64,
+        help="portfolio candidates per query (device engine)",
+    )
+    lab.add_argument(
+        "--steps", type=int, default=512,
+        help="portfolio local-search steps (device engine)",
+    )
+    lab.add_argument("--json", action="store_true", help="emit the report as JSON")
+    lab.add_argument(
+        "--strict", action="store_true",
+        help="exit 1 when any engine disagrees with a live verdict",
+    )
+    lab.add_argument(
+        "--trials", type=int, default=12,
+        help="tune mode: random-sweep sample count (default 12)",
+    )
+    lab.add_argument(
+        "--sweep", choices=["random", "grid"], default="random",
+        help="tune mode: 'random' samples --trials grid combinations, 'grid' "
+        "walks one knob at a time off the committed defaults",
+    )
+    lab.add_argument(
+        "--tune-seed", type=int, default=1,
+        help="tune mode: random-sweep seed (deterministic trials)",
+    )
+    lab.add_argument(
+        "--watch", action="store_true",
+        help="tune mode: continuous self-tuning: re-sweep whenever the "
+        "capture corpus grows, gate the winner by 100%% host-replay "
+        "agreement, and promote it as a versioned tuned-defaults artifact",
+    )
+    lab.add_argument(
+        "--watch-out", default=None, metavar="DIR",
+        help="--watch: where tuned-v<N>.json artifacts land (default: the "
+        "corpus directory itself)",
+    )
+    lab.add_argument(
+        "--watch-interval", type=float, default=30.0, metavar="SECONDS",
+        help="--watch: seconds between corpus re-scans",
+    )
+    lab.add_argument(
+        "--min-new", type=int, default=8, metavar="N",
+        help="--watch: fresh captured queries required before a re-sweep "
+        "(the first sweep always runs)",
+    )
+    lab.add_argument(
+        "--rounds", type=int, default=0, metavar="N",
+        help="--watch: exit after N scan rounds (0 = until ^C)",
+    )
+    lab.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="run the device and race engines on the card (cuda, the "
+        "default) or the plain PyTorch versions on the CPU",
+    )
+
+
+def _add_route(commands) -> None:
+    """`route`: the JAX package's `myth route` flags."""
+    route = commands.add_parser(
+        "route",
+        help="Learned tier-ladder router lab over the routing JSONL: train a "
+        "per-tier cost model into a versioned router artifact (train), score "
+        "an artifact's regret/oracle agreement against a log (eval), and "
+        "explain one contract's routing decision (explain). Artifacts mount "
+        "at `serve --router DIR`",
+    )
+    route.add_argument(
+        "route_mode", choices=["train", "eval", "explain"], metavar="MODE",
+        help="train | eval | explain",
+    )
+    route.add_argument(
+        "--log", required=True, metavar="FILE",
+        help="the routing_features.jsonl to learn from / score against",
+    )
+    route.add_argument(
+        "--out", default=None, metavar="DIR",
+        help="train: where the router-v<N>.json artifact lands",
+    )
+    route.add_argument(
+        "--router", default=None, metavar="DIR",
+        help="eval/explain: the artifact directory to load (default: env "
+        "MYTHRIL_ROUTER_DIR)",
+    )
+    route.add_argument(
+        "--l2", type=float, default=1.0,
+        help="train: ridge/logistic L2 strength (default 1.0)",
+    )
+    route.add_argument(
+        "--select", default=None, metavar="NAME|HASH",
+        help="explain: pick the record by contract name or code-hash prefix "
+        "(default: the last record in the log)",
+    )
+    route.add_argument("--json", action="store_true", help="emit machine-readable JSON")
+
+
 def serve_refusals(args) -> List[str]:
     """The `serve` settings of modules the port does not have, each
     with the module it needs."""
@@ -683,9 +848,6 @@ def serve_refusals(args) -> List[str]:
         "--devices N > 1": args.devices > 1,
         "--journal": bool(args.journal),
         "--recover": args.recover,
-        "--router / MYTHRIL_ROUTER_DIR": bool(
-            args.router or os.environ.get("MYTHRIL_ROUTER_DIR")
-        ) and not args.no_router,
         "--kernel-pack": bool(args.kernel_pack),
         "--kernel-cache / MYTHRIL_KERNEL_CACHE": bool(
             args.kernel_cache or os.environ.get("MYTHRIL_KERNEL_CACHE")
@@ -744,6 +906,8 @@ def run_serve(args) -> int:
         device=None if args.device == "cuda" else args.device,
         store_dir=store_dir(args),
         store=not args.no_store,
+        router_dir=args.router or os.environ.get("MYTHRIL_ROUTER_DIR") or None,
+        router=not args.no_router,
     )
     serve_forever(config, host=args.host, port=args.port)
     return 0
@@ -796,6 +960,149 @@ def run_submit(args) -> int:
         # both land here; the exit code flags the failure for scripts
         print(json.dumps({"error": str(why), "status": why.status}), file=sys.stderr)
         return 1
+    return 0
+
+
+def run_solverlab(args) -> int:
+    """`solverlab`: replay, report or tune a captured query corpus, as
+    the JAX `_cmd_solverlab`; the device and race engines run on
+    `--device`."""
+    from mythril_tpu_torch.analysis import solverlab
+
+    reason = origin = None
+    if args.filter:
+        key, sep, value = args.filter.partition("=")
+        if not sep or key not in ("reason", "origin"):
+            print(f"solverlab: --filter wants reason=... or origin=..., got "
+                  f"{args.filter!r}", file=sys.stderr)
+            return 1
+        if key == "reason":
+            reason = value
+        else:
+            origin = value
+    engines = [e.strip() for e in args.engines.split(",") if e.strip()]
+    try:
+        report = solverlab.run(
+            args.corpus,
+            mode=args.mode,
+            engines=engines,
+            timeout_ms=args.timeout_ms,
+            candidates=args.candidates,
+            steps=args.steps,
+            reason=reason,
+            origin=origin,
+            shard=args.shard,
+            trials=args.trials,
+            sweep=args.sweep,
+            tune_seed=args.tune_seed,
+            watch=args.watch,
+            watch_out=args.watch_out,
+            watch_interval_s=args.watch_interval,
+            watch_min_new=args.min_new,
+            watch_rounds=args.rounds,
+            device=None if args.device == "cuda" else args.device,
+        )
+    except (OSError, ValueError) as why:
+        print(f"solverlab: {why}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(report, sort_keys=True))
+    else:
+        print(solverlab.render_text(report))
+    if args.strict:
+        disagreements = sum(
+            table["agreement"]["disagree"]
+            for table in (report.get("replay") or {}).values()
+        )
+        return 1 if disagreements else 0
+    return 0
+
+
+def run_route(args) -> int:
+    """`route train|eval|explain`: the learned router lab, as the JAX
+    `_cmd_route` (routing/ holds the logic)."""
+    from mythril_tpu_torch import routing
+    from mythril_tpu_torch.observe.routing import read_records
+    from mythril_tpu_torch.routing.evaluate import find_record
+
+    try:
+        records = read_records(args.log)
+    except OSError as why:
+        print(f"route: cannot read {args.log}: {why}", file=sys.stderr)
+        return 1
+    if args.route_mode == "train":
+        if not args.out:
+            print("route train wants --out DIR for the artifact", file=sys.stderr)
+            return 2
+        try:
+            model = routing.train_model(records, lam=args.l2)
+        except ValueError as why:
+            print(f"route train: {why}", file=sys.stderr)
+            return 1
+        path = routing.save_router(args.out, model)
+        summary = {
+            "artifact": path,
+            "trained_rows": model["trained_rows"],
+            "routes": {
+                name: {"n": head["n"], "mean_wall_s": round(head["mean_wall_s"], 4)}
+                for name, head in model["routes"].items()
+            },
+        }
+        if args.json:
+            print(json.dumps(summary, sort_keys=True))
+        else:
+            print(f"router artifact written to {path}")
+            for name, head in sorted(summary["routes"].items()):
+                print(f"  {name}: {head['n']} rows, mean wall {head['mean_wall_s']}s")
+        return 0
+    router = (
+        routing.load_router(args.router) if args.router else routing.configured_router()
+    )
+    if router is None:
+        print(f"route {args.route_mode} wants a verifying artifact (--router DIR "
+              "or MYTHRIL_ROUTER_DIR)", file=sys.stderr)
+        return 1
+    if args.route_mode == "eval":
+        report = routing.evaluate_log(records, router)
+        if args.json:
+            print(json.dumps(report, sort_keys=True))
+        else:
+            print(
+                f"router-v{report['router_version']} over {report['records']} "
+                f"records ({report['scored']} scored): regret "
+                f"{report['regret_s']:.3f}s, oracle agreement "
+                f"{report['oracle_agreement']:.2f}"
+            )
+            for name, row in sorted(report["per_route"].items()):
+                print(
+                    f"  {name}: n={row['n']} regret={row['regret_s']:.3f}s "
+                    f"oracle-agrees={row['oracle_agrees']} "
+                    f"observed-wall={row['observed_wall_s']:.3f}s"
+                )
+        return 0
+    record = find_record(records, args.select)
+    if record is None:
+        print(f"route explain: no record matches {args.select!r}", file=sys.stderr)
+        return 1
+    report = routing.explain_record(record, router)
+    if args.json:
+        print(json.dumps(report, sort_keys=True))
+    else:
+        print(
+            f"{report['contract'] or report['code_hash']}: logged "
+            f"{report['logged_route']}, router-v{report['router_version']} "
+            f"picks {report['chosen_route']}"
+        )
+        for name, head in sorted(report["expected"].items()):
+            print(
+                f"  {name}: wall {head['wall_s']:.3f}s p_success "
+                f"{head['p_success']:.2f} cost {head['cost']:.3f}"
+            )
+        for name, rows in sorted(report["attributions"].items()):
+            top = ", ".join(
+                f"{row['feature']}={row['wall_contribution']:+.3f}" for row in rows[:5]
+            )
+            print(f"  {name} drivers: {top}")
     return 0
 
 
@@ -971,6 +1278,12 @@ def run_analyze(args) -> int:
             "the port analyzes runtime code: pass runtime bytecode with "
             "--bin-runtime",
         )
+    from mythril_tpu_torch import observe
+
+    if args.no_observe:
+        observe.set_enabled(False)
+    if args.observe_out:
+        observe.configure(out_dir=args.observe_out)
     disassembler = MythrilDisassembler()
     address = load_bytecode(disassembler, args, args.outform)
     if _apply_corpus_shard(disassembler, args):
@@ -1381,6 +1694,10 @@ def main(argv=None) -> int:
         return run_serve(args)
     if args.command == "submit":
         return run_submit(args)
+    if args.command == "solverlab":
+        return run_solverlab(args)
+    if args.command == "route":
+        return run_route(args)
     if args.command not in ANALYZE_LIST:
         parser.print_help()
         return 2

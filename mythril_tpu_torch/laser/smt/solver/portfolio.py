@@ -104,16 +104,28 @@ _TUNED_VERSION = 0
 
 
 def install_tuned_defaults(knobs: Dict[str, float], version: int) -> None:
-    """Apply a tuned override set as the process defaults. The knobs are
-    arguments of the search kernel, read at each dispatch, so the swap
-    needs no recompile. (The JAX package also sets a registry gauge here;
-    the port has no metrics registry: `tuned_version()` reports it.)"""
+    """Apply a tuned-v<N>.json override artifact (routing/tuning.py) as
+    the process defaults, and publish its version as the
+    ``mtpu_router_tuned_version`` gauge, as the JAX package does. The
+    knobs are arguments of the search kernel, read at each dispatch, so
+    the swap needs no recompile."""
     global _TUNED_VERSION
     unknown = set(knobs) - set(PORTFOLIO_DEFAULTS)
     if unknown:
         raise ValueError(f"unknown portfolio knobs: {sorted(unknown)}")
     PORTFOLIO_DEFAULTS.update(knobs)
     _TUNED_VERSION = int(version)
+    _tuned_gauge().set(_TUNED_VERSION)
+
+
+def _tuned_gauge():
+    from mythril_tpu_torch.observe.registry import registry
+
+    return registry().gauge(
+        "mtpu_router_tuned_version",
+        "version of the installed tuned portfolio-override artifact "
+        "(0 = committed defaults)",
+    )
 
 
 def reset_tuned_defaults() -> None:

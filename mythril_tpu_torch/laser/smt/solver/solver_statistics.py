@@ -6,7 +6,7 @@ mythril/laser/smt/solver/solver_statistics.py:8-43, the
 `SolverStatistics` singleton + `stat_smt_query` decorator). The JAX
 package backs every field with an ``mtpu_solver_stats_*`` series of its
 metrics registry; the port keeps them as plain in-process counters
-until the registry is ported (ROADMAP Queue 1 item 9).
+(the registry-backed view is still to be ported: ROADMAP Queue 1 item 4).
 
 Beside the JAX fields the port counts the device race's starts and its
 errors (`race_started`, `race_errors`): a race that raised, rather than

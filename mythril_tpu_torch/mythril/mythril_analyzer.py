@@ -27,15 +27,17 @@ Where the port differs, and how it says so:
   JAX one, but a write that fails is recorded in the DegradationLog
   (`store-writeback-failed`, by store/store.py or here), where the JAX
   facade only logs it; the report stands;
+- every analyzed contract writes one routing-feature record
+  (`_routing_record`, observe/routing.py) under a fresh journey id, and
+  the report meta carries each contract's journey (`journeys`), as in
+  the JAX facade; a record that cannot be built is recorded in the
+  DegradationLog (`routing-record-failed`), where the JAX facade only
+  logs it. The solver attribution, the loss reasons, the captured query
+  count and the degradation block are filled as in the JAX package;
 - not ported, and refused with the module named rather than ignored:
-  the routing record (`_routing_record`: routing/, observe/routing.py),
   the device mesh (`mesh_devices > 1`), the host-first solver funnel
   (`device_first=False`), and `sparse_pruning` / `unconstrained_storage`,
-  whose branches the port's host walk does not have. With no routing
-  record there is no per-contract journey, so the report meta carries no
-  `journeys` key; the solver attribution, the loss reasons, the captured
-  query count and the degradation block are filled as in the JAX
-  package;
+  whose branches the port's host walk does not have;
 - the port has no chain RPC client: the loader is `DynLoader(None,
   active=use_onchain_data)`, whose reads raise (support/loader.py);
 - the pipelined schedule keeps the port's default, off (`pipeline`).
@@ -290,6 +292,7 @@ class MythrilAnalyzer:
             observe.configure_capture(self.capture_queries)
         solver_marker = observe.solver_marker()
         loss_marker = querylog.loss_marker()
+        self._journey_ids: List = []
         if self.deadline is not None:
             resilience.set_run_deadline(self.deadline)
         pre = None
@@ -339,6 +342,17 @@ class MythrilAnalyzer:
             report.meta["captured_queries"] = observe.captured_total(
                 since=loss_marker
             )
+        # per-contract tier-ladder journeys (observe/journey.py): each
+        # contract's timeline skeleton, keyed by the journey_id its
+        # routing record also carries
+        journeys = []
+        for name, journey_id in self._journey_ids:
+            doc = observe.assemble_journey(journey_id)
+            if doc is not None:
+                doc["contract"] = name
+                journeys.append(doc)
+        if journeys:
+            report.meta["journeys"] = journeys
         reasons = resilience.DegradationLog().counts_since(degradation_marker)
         partial = any(not status["complete"] for status in completion)
         if reasons or partial:
@@ -444,6 +458,11 @@ class MythrilAnalyzer:
                     contract, issues, outcome, time.perf_counter() - t_contract,
                     modules, transaction_count,
                 )
+            journey_id = self._routing_record(
+                contract, issues, crashed, time.perf_counter() - t_contract
+            )
+            if journey_id is not None:
+                self._journey_ids.append((contract.name, journey_id))
             log.info("Host phase profile: %s", PhaseProfile().as_dict())
         return collected, crashes, execution_info, completion
 
@@ -513,6 +532,72 @@ class MythrilAnalyzer:
                 detail=f"{type(why).__name__}: {why}",
                 contract=contract.name,
             )
+
+    @staticmethod
+    def _routing_record(
+        contract, issues: List[Issue], crashed: bool, wall_s: float
+    ) -> Optional[str]:
+        """One routing-feature record per analyzed contract on the
+        command-line path (the corpus driver writes its own): static
+        features joined with the walk's wall and issue outcome
+        (observe/routing.py), keyed by a fresh journey_id whose skeleton
+        timeline lands in the journey log, which the report meta
+        attaches. A record that cannot be built is recorded
+        `routing-record-failed`."""
+        import hashlib
+
+        from mythril_tpu_torch import observe
+        from mythril_tpu_torch.support.resilience import (
+            DegradationLog,
+            DegradationReason,
+        )
+
+        if not observe.enabled():
+            return None
+        try:
+            code = contract.code or getattr(contract, "creation_code", "") or ""
+            code = code[2:] if code.startswith("0x") else code
+            try:
+                digest = hashlib.sha256(bytes.fromhex(code)).hexdigest()
+            except ValueError:
+                digest = ""
+            outcome = observe.routing_outcome_for(
+                {
+                    "name": contract.name,
+                    "issues": [None] * len(issues),
+                    "wall_s": round(wall_s, 3),
+                    "error": "crash" if crashed else None,
+                    "complete": not crashed,
+                }
+            )
+            journey_id = observe.new_journey_id()
+            observe.journey_event(
+                journey_id, "admission", "analyze", contract=contract.name
+            )
+            observe.journey_event(
+                journey_id, outcome.get("route", "?"), "routed",
+                wall_s=outcome.get("wall_s"),
+            )
+            observe.journey_event(
+                journey_id, "settle", "failed" if crashed else "done",
+                issues=len(issues),
+            )
+            observe.routing_log().record(
+                contract=contract.name,
+                code_hash=digest,
+                features=observe.routing_features_for(code),
+                outcome=outcome,
+                journey_id=journey_id,
+            )
+            return journey_id
+        except Exception as why:
+            DegradationLog().record(
+                DegradationReason.ROUTING_RECORD_FAILED,
+                site="analyzer",
+                detail=f"{type(why).__name__}: {why}",
+                contract=contract.name,
+            )
+        return None
 
     def _merge_prepass_issues(self, final: dict, collected: List[Issue]) -> List[Issue]:
         """Witness issues the device banked for contracts the host walk

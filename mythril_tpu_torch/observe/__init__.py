@@ -1,7 +1,6 @@
 """Telemetry of the port.
 
-The port's copy of the JAX package's observe/ API, less its routing
-feature log (the router and its features are not ported):
+The port's copy of the JAX package's observe/ API:
 
 - **Metrics registry** (registry.py): typed counters, gauges and
   histograms with labels under one lock; the analysis service's series
@@ -13,13 +12,18 @@ feature log (the router and its features are not ported):
   in a bounded flight recorder, exported as Chrome/Perfetto trace JSON
   (``/trace?format=perfetto``, the drain's final flush).
 - **Solver query telemetry** (solverstats.py): every verdict tagged with
-  the engine that answered it (a plain table in the port).
+  the engine that answered it, in the registry's ``mtpu_solver_*``
+  series.
+- **Routing feature log** (routing.py): one record per analyzed
+  contract, its static features joined with the route it took and its
+  outcome: the learned router's (routing/) training set, written to
+  ``<out_dir>/routing_features.jsonl``.
 - **Journeys** (journey.py), **health** (slo.py) and **device
   saturation** (devicemon.py): the service's per-job timelines, its
   readiness machine and its `mtpu_device_*` gauges.
 
 `set_enabled(False)` (the JAX package's `--no-observe`) turns span,
-solver and journey recording into near-zero-cost no-ops; registry
+solver, routing-record and journey recording into near-zero-cost no-ops; registry
 arithmetic that backs `/stats` stays on. `configure(out_dir=...)` points
 file outputs (degradation flight dumps) at a directory.
 """
@@ -66,6 +70,20 @@ from mythril_tpu_torch.observe.slo import (  # noqa: F401
     SloEngine,
     default_objectives,
 )
+from mythril_tpu_torch.observe.routing import (  # noqa: F401
+    features_for as routing_features_for,
+)
+from mythril_tpu_torch.observe.routing import outcome_for as routing_outcome_for  # noqa: F401,E501
+from mythril_tpu_torch.observe.routing import (  # noqa: F401
+    parse_record as parse_routing_record,
+)
+from mythril_tpu_torch.observe.routing import (  # noqa: F401
+    read_records as read_routing_records,
+)
+from mythril_tpu_torch.observe.routing import (  # noqa: F401
+    tail_records as tail_routing_records,
+)
+from mythril_tpu_torch.observe.routing import routing_log  # noqa: F401
 from mythril_tpu_torch.observe.solverstats import (  # noqa: F401
     ORIGIN_DEVICE,
     ORIGIN_HOST_CDCL,
@@ -100,7 +118,7 @@ def enabled() -> bool:
 
 def set_enabled(on: bool) -> None:
     """The --no-observe switch: gates span recording, solver query
-    telemetry, journeys and automatic flight dumps."""
+    telemetry, routing records, journeys and automatic flight dumps."""
     global _ENABLED
     _ENABLED = bool(on)
 

@@ -1,13 +1,14 @@
 """The solver's loss-reason taxonomy, query context and query capture.
 
-The port's copy of the parts of the JAX package's observe/querylog.py
-that its solver and explorer use: the loss constants (a
+The port's copy of the JAX package's observe/querylog.py: the loss constants (a
 `DeviceVerdict`'s `loss` and `compile_program_ex`'s reason are one of
 them), the thread-local query context (`query_context`, the origin
 labels), and capture (`configure_capture(dir)` arms it; each captured
 query's lowered constraint set serializes to `<dir>/q-<sha256>.json`
-in the JAX package's artifact schema, so its solverlab replays the
-port's captures), and the loss waterfall (`record_loss`,
+in the JAX package's artifact schema; `load_corpus` and
+`deserialize_terms` read a corpus back and rebuild its queries, so
+either package's solverlab replays the other's captures), and the loss
+waterfall (`record_loss`,
 `loss_reasons`), counted as in the JAX package in the metrics registry:
 ``mtpu_solver_loss_total{reason,verdict}`` and
 ``mtpu_solver_captured_queries_total{origin}``, the series the analysis
@@ -60,6 +61,7 @@ LOSS_REASONS = (
 #: the query-origin labels (where a query came FROM, as opposed to the
 #: solverstats origin of who ANSWERED it)
 QUERY_ORIGIN_FLIP = "flip-frontier"
+QUERY_ORIGIN_MODULE = "module"
 QUERY_ORIGIN_MEMO_MISS = "memo-miss"
 
 
@@ -272,6 +274,80 @@ def content_address(doc: Dict) -> str:
     return hashlib.sha256(blob.encode()).hexdigest()
 
 
+def deserialize_terms(doc: Dict) -> List:
+    """Rebuild real (interned) terms from a serialized program; the
+    constructors re-apply their canonicalizations, so the rebuilt set
+    is semantically the captured set even across processes (and across
+    the two packages: the JAX package's captures rebuild here)."""
+    from mythril_tpu_torch.laser.smt import terms
+
+    built: List = []
+
+    def arg(spec):
+        kind, value = spec
+        return built[value] if kind == "t" else value
+
+    for node in doc["nodes"]:
+        op, w, raw = node["op"], node["w"], node["a"]
+        a = [arg(s) for s in raw]
+        if op == "const":
+            t = terms.bv_const(a[0], w)
+        elif op == "var":
+            t = terms.bv_var(a[0], w)
+        elif op == "bvar":
+            t = terms.bool_var(a[0])
+        elif op == "true":
+            t = terms.TRUE
+        elif op == "false":
+            t = terms.FALSE
+        elif op == "extract":
+            t = terms.extract(a[0], a[1], a[2])
+        elif op in ("zext", "sext"):
+            t = getattr(terms, op)(a[0], a[1])
+        elif op == "ite":
+            t = terms.ite(a[0], a[1], a[2])
+        elif op in ("band", "bor"):
+            t = getattr(terms, op)(*a)
+        elif op == "bnot":
+            t = terms.bnot(a[0])
+        elif op == "not":
+            t = terms.bvnot(a[0])
+        elif op in _BIN_OPS:
+            t = _BIN_OPS[op](a[0], a[1])
+        else:
+            raise NotImplementedError(f"cannot rebuild op {op!r}")
+        built.append(t)
+    return [built[i] for i in doc["roots"]]
+
+
+def _bin_ops():
+    from mythril_tpu_torch.laser.smt import terms
+
+    return {
+        "add": terms.add, "sub": terms.sub, "mul": terms.mul,
+        "udiv": terms.udiv, "urem": terms.urem, "sdiv": terms.sdiv,
+        "srem": terms.srem, "and": terms.bvand, "or": terms.bvor,
+        "xor": terms.bvxor, "shl": terms.shl, "lshr": terms.lshr,
+        "ashr": terms.ashr, "concat": terms.concat, "eq": terms.eq,
+        "ult": terms.ult, "ule": terms.ule, "slt": terms.slt,
+        "sle": terms.sle, "bxor": terms.bxor,
+    }
+
+
+class _LazyBin(dict):
+    def __missing__(self, key):
+        self.update(_bin_ops())
+        return dict.__getitem__(self, key)
+
+    def __contains__(self, key):
+        if not len(self):
+            self.update(_bin_ops())
+        return dict.__contains__(self, key)
+
+
+_BIN_OPS = _LazyBin()
+
+
 # ---------------------------------------------------------------------------
 # capture
 # ---------------------------------------------------------------------------
@@ -358,3 +434,35 @@ def capture_query(
     except Exception:
         log.debug("query capture failed", exc_info=True)
         return None
+
+
+def load_corpus(
+    corpus_dir: str,
+    reason: Optional[str] = None,
+    origin: Optional[str] = None,
+) -> List[Dict]:
+    """Load a captured corpus (sorted by content address), optionally
+    filtered by last loss reason and/or query origin. A corpus either
+    package captured loads here."""
+    out: List[Dict] = []
+    for name in sorted(os.listdir(corpus_dir)):
+        if not (name.startswith("q-") and name.endswith(".json")):
+            continue
+        path = os.path.join(corpus_dir, name)
+        try:
+            with open(path) as fp:
+                artifact = json.load(fp)
+        except Exception:
+            log.warning("unreadable capture artifact skipped: %s", path)
+            continue
+        if artifact.get("kind") != "mtpu-solver-query":
+            continue
+        if int(artifact.get("schema_version", 0)) > ARTIFACT_SCHEMA_VERSION:
+            log.warning("artifact %s has a newer schema; skipped", name)
+            continue
+        if reason is not None and artifact.get("loss_reason") != reason:
+            continue
+        if origin is not None and artifact.get("origin") != origin:
+            continue
+        out.append(artifact)
+    return out

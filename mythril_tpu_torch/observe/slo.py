@@ -33,11 +33,11 @@ Redline/not-ready reasons are an enumerated, stable vocabulary
 (`REDLINE_REASONS`, `NOT_READY_REASONS`): the future federation front
 switches on them, so they are wire schema, not log strings.
 
-The port's copy of the JAX package's observe/slo.py. Of the default
-objectives' series, the port publishes the service's admissions, job
-latencies and waves and the degradation counts; the solver's query and
-escalation counters stay in observe/solverstats.py's plain table, so
-`solver-escalation-share` sees no events and stays quiet.
+The port's copy of the JAX package's observe/slo.py. The port publishes
+every default objective's series: the service's admissions, job
+latencies and waves, the degradation counts, and the solver's query and
+escalation counters (observe/solverstats.py), which
+`solver-escalation-share` reads.
 """
 
 from __future__ import annotations

@@ -1,31 +1,39 @@
 """Solver query telemetry: per-origin attribution of every SAT/SMT
 verdict.
 
-The port's copy of the JAX package's observe/solverstats.py: every
-query is tagged with its **origin** (which engine answered it), its
-**verdict**, its wall and its escalation hops, and the counts aggregate
-into the attribution table (`attribution()`).
+Which engine answered which query, at what cost, after how many
+escalation hops: `SolverStatistics` keeps two global sat counts; this
+module tags every query with its **origin** and **verdict** and
+aggregates them into the attribution table that lands in the jsonv2
+report meta (`solver_attribution`).
 
 Origins, in escalation-ladder order:
 
     memo              the get_model verdict cache pre-empted the solve
     host-cdcl         native CDCL (sprint or marathon)
-    device-portfolio  the card's portfolio (race wins, the
-                      --parallel-solving escape) — hop >= 1
+    device-portfolio  the on-chip portfolio (flip batches, race wins,
+                      the --parallel-solving escape hatch) — hop >= 1
     host-z3           reserved: an external-solver escalation rung
-                      (not wired; the label is part of the schema)
+                      (not wired in this build; the label is part of
+                      the stable schema so downstream dashboards don't
+                      churn when it lands)
 
-The JAX package backs these counts with ``mtpu_solver_*`` series of its
-metrics registry (scraped at /metrics, with a per-query wall
-histogram); the port keeps them in a plain in-process table until the
-registry is ported (ROADMAP Queue 1 item 9). `marker()` and
-`attribution(since)` give per-run deltas as the JAX ones do.
+Backing store is the metrics registry (mtpu_solver_* series), so the
+table is also scraped at /metrics and per-run deltas ride the same
+marker machinery everything else uses.
+
+The port's copy of the JAX package's observe/solverstats.py, on the
+port's registry: ``mtpu_solver_queries_total{origin,verdict}`` is the
+series the health machine's `solver-escalation-share` objective
+(observe/slo.py) reads, so that objective fires in the port as it does
+in the JAX package.
 """
 
 from __future__ import annotations
 
-import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
+
+from mythril_tpu_torch.observe.registry import SOLVER_WALL_BUCKETS, registry
 
 #: the stable origin labels (see module docstring)
 ORIGIN_MEMO = "memo"
@@ -33,13 +41,41 @@ ORIGIN_HOST_CDCL = "host-cdcl"
 ORIGIN_DEVICE = "device-portfolio"
 ORIGIN_Z3 = "host-z3"
 
-_MU = threading.Lock()
-#: (origin, verdict) -> queries
-_QUERIES: Dict[Tuple[str, str], int] = {}
-#: origin -> wall seconds
-_WALL: Dict[str, float] = {}
-#: origin -> escalation hops
-_ESCALATIONS: Dict[str, int] = {}
+_QUERIES = None
+_WALL = None
+_WALL_HIST = None
+_ESCALATIONS = None
+_METRICS_REG = None
+
+
+def _metrics():
+    # handles re-resolve when the registry instance changes
+    # (reset_registry in tests) — a cached child writing to an
+    # orphaned registry is a silent telemetry sink
+    global _QUERIES, _WALL, _WALL_HIST, _ESCALATIONS, _METRICS_REG
+    if _QUERIES is None or _METRICS_REG is not registry():
+        reg = _METRICS_REG = registry()
+        _QUERIES = reg.counter(
+            "mtpu_solver_queries_total",
+            "SAT/SMT queries by answering origin and verdict",
+        )
+        _WALL = reg.counter(
+            "mtpu_solver_wall_seconds_total",
+            "solver wall seconds by answering origin",
+        )
+        # per-query wall distribution on its own ladder: memo hits
+        # are microseconds, CDCL marathons tens of seconds — the
+        # default bucket ladder crushes the warm end into one bucket
+        _WALL_HIST = reg.histogram(
+            "mtpu_solver_query_seconds",
+            "per-query solver wall by answering origin",
+            buckets=SOLVER_WALL_BUCKETS,
+        )
+        _ESCALATIONS = reg.counter(
+            "mtpu_solver_escalations_total",
+            "queries that climbed past the first ladder rung, by origin",
+        )
+    return _QUERIES, _WALL, _ESCALATIONS
 
 
 def record_query(
@@ -52,20 +88,19 @@ def record_query(
 
     if not observe.enabled():
         return
-    with _MU:
-        key = (origin, verdict)
-        _QUERIES[key] = _QUERIES.get(key, 0) + 1
-        if wall_s:
-            _WALL[origin] = _WALL.get(origin, 0.0) + wall_s
-        if hop > 0:
-            _ESCALATIONS[origin] = _ESCALATIONS.get(origin, 0) + hop
+    queries, wall, escalations = _metrics()
+    queries.labels(origin=origin, verdict=verdict).inc()
+    if wall_s:
+        wall.labels(origin=origin).inc(wall_s)
+        _WALL_HIST.labels(origin=origin).observe(wall_s)
+    if hop > 0:
+        escalations.labels(origin=origin).inc(hop)
 
 
 def marker() -> Dict:
-    """A snapshot of the tables, for per-run attribution deltas."""
-    with _MU:
-        return {"queries": dict(_QUERIES), "wall": dict(_WALL),
-                "escalations": dict(_ESCALATIONS)}
+    """Registry snapshot for per-run attribution deltas."""
+    _metrics()
+    return registry().marker()
 
 
 def attribution(since: Optional[Dict] = None) -> Dict[str, Dict]:
@@ -75,27 +110,37 @@ def attribution(since: Optional[Dict] = None) -> Dict[str, Dict]:
                   "wall_s": seconds, "escalations": n}}
 
     Over the whole process, or as a delta when `since` (a `marker()`)
-    is given."""
-    now = marker()
-    base = since or {"queries": {}, "wall": {}, "escalations": {}}
+    is given — the per-run form the report meta embeds."""
+    _metrics()
+    reg = registry()
+    snap = reg.since(since) if since is not None else reg.snapshot()
     out: Dict[str, Dict] = {}
 
     def row(origin: str) -> Dict:
-        return out.setdefault(origin, {"queries": 0, "verdicts": {},
-                                       "wall_s": 0.0, "escalations": 0})
+        entry = out.get(origin)
+        if entry is None:
+            entry = out[origin] = {
+                "queries": 0,
+                "verdicts": {},
+                "wall_s": 0.0,
+                "escalations": 0,
+            }
+        return entry
 
-    for (origin, verdict), n in now["queries"].items():
-        n -= base["queries"].get((origin, verdict), 0)
-        if n:
-            entry = row(origin)
-            entry["queries"] += n
-            entry["verdicts"][verdict] = entry["verdicts"].get(verdict, 0) + n
-    for origin, wall in now["wall"].items():
-        wall -= base["wall"].get(origin, 0.0)
-        if wall > 0:
-            row(origin)["wall_s"] = round(wall, 3)
-    for origin, hops in now["escalations"].items():
-        hops -= base["escalations"].get(origin, 0)
-        if hops:
-            row(origin)["escalations"] = hops
+    for key, value in (snap.get("mtpu_solver_queries_total") or {}).items():
+        labels = dict(key)
+        entry = row(labels.get("origin", "?"))
+        verdict = labels.get("verdict", "?")
+        entry["queries"] += int(value)
+        entry["verdicts"][verdict] = (
+            entry["verdicts"].get(verdict, 0) + int(value)
+        )
+    for key, value in (
+        snap.get("mtpu_solver_wall_seconds_total") or {}
+    ).items():
+        row(dict(key).get("origin", "?"))["wall_s"] = round(value, 3)
+    for key, value in (
+        snap.get("mtpu_solver_escalations_total") or {}
+    ).items():
+        row(dict(key).get("origin", "?"))["escalations"] = int(value)
     return out

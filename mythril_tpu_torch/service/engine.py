@@ -62,11 +62,23 @@ and a lookup that raises `store-unavailable`, where the JAX engine only
 logs them; the job goes on as in the JAX engine. The journal's
 re-admission through the store waits for service/journal.py.
 
+The learned router (routing/, `serve --router DIR`) is the JAX
+engine's tier: a submission the cost model prices cheaper on the host
+walk goes straight to the walk pool at admission (no queue slot, no
+wave; its walk runs with the card off, as every walk of the JAX engine
+does, and is clamped to the decision's budget); a routed walk that
+overran its budget or raised is promoted once to the head of the wave
+queue (`_finalize`). A tuned-defaults artifact in the same directory is
+installed at start. Every settled job writes one routing-feature record
+(observe/routing.py). A router that raises while it loads or decides is
+recorded in the DegradationLog (`router-failed`) and a routing record
+that cannot be built `routing-record-failed`, where the JAX engine only
+logs them; the job takes the built-in ladder, as in the JAX engine.
+
 Left out with their modules (refused by `serve`): the device mesh
-(`devices > 1`), the durable journal and its recovery, the learned
-router and its routing records, and the compile plane's kernel packs
-and artifact cache. /stats keeps the JAX package's key set: their
-blocks read as disabled.
+(`devices > 1`), the durable journal and its recovery, and the compile
+plane's kernel packs and artifact cache. /stats keeps the JAX package's
+key set: their blocks read as disabled.
 """
 
 from __future__ import annotations
@@ -171,6 +183,8 @@ class ServiceConfig:
         device=None,
         store_dir: Optional[str] = None,
         store: bool = True,
+        router_dir: Optional[str] = None,
+        router: bool = True,
     ) -> None:
         self.stripes = stripes
         self.lanes_per_stripe = lanes_per_stripe
@@ -234,6 +248,15 @@ class ServiceConfig:
         #: configured.
         self.store_dir = store_dir
         self.store = store
+        #: learned tier-ladder router (routing/, `serve --router DIR`):
+        #: admission prices host-walk vs device-waves from a trained
+        #: cost-model artifact and routes host-cheap submissions straight
+        #: to the walk pool (no queue slot, no wave), with in-flight
+        #: promotion back to the wave queue on budget overrun.
+        #: Absent/refused artifact or `--no-router` (router=False):
+        #: today's ladder, bit for bit.
+        self.router_dir = router_dir
+        self.router = router
         #: arena warmup (`serve` default ON, tests default OFF):
         #: `start()` launches a background thread that builds and loads
         #: the wave's kernel libraries and lands one all-halt wave of
@@ -673,6 +696,27 @@ class AnalysisEngine:
             thread_name_prefix="myth-serve-host",
         )
         self._host_inflight: Dict[str, Tuple] = {}
+        # the learned tier-ladder router (routing/): priced admission and
+        # in-flight promotion. None (no artifact, a refused artifact, or
+        # router=False) keeps today's ladder bit for bit.
+        self._router = None
+        if self.cfg.router:
+            from mythril_tpu_torch.routing import router as _routing_rt
+            from mythril_tpu_torch.routing import tuning as _routing_tune
+
+            try:
+                self._router = (
+                    _routing_rt.load_router(self.cfg.router_dir)
+                    if self.cfg.router_dir
+                    else _routing_rt.configured_router()
+                )
+                # tuned portfolio-override artifacts ride the same
+                # directory: install the newest verifying one
+                if self.cfg.router_dir:
+                    _routing_tune.maybe_install_tuned(self.cfg.router_dir)
+            except Exception as why:
+                self._router = None
+                _routing_rt.record_failure("service-router-load", why)
         self._deg_marker = DegradationLog().marker()
         # -- observability: the wave-loop counters are REGISTRY-backed
         # (mtpu_service_* series labeled by engine instance): every
@@ -1005,6 +1049,8 @@ class AnalysisEngine:
             return job
         if self._try_static_answer(job):
             return job
+        if self._try_routed_host(job):
+            return job
         self.queue.submit(job)  # raises QueueRefusal on backpressure
         self._wake.set()
         return job
@@ -1064,6 +1110,7 @@ class AnalysisEngine:
             "issues": [],
         }
         self.queue.settle(job, JobState.FAILED)
+        self._routing_record(job, route="quarantined")
 
     def _try_quarantine(self, job: Job) -> bool:
         """The quarantine gate at admission: a denylisted (or
@@ -1155,6 +1202,7 @@ class AnalysisEngine:
             },
         }
         self.queue.settle(job, JobState.DONE)
+        self._routing_record(job, route="store-hit")
         return True
 
     def _try_static_answer(self, job: Job) -> bool:
@@ -1202,7 +1250,127 @@ class AnalysisEngine:
             },
         }
         self.queue.settle(job, JobState.DONE)
+        self._routing_record(job, route="static-answer")
         return True
+
+    def _try_routed_host(self, job: Job) -> bool:
+        """The cost-model admission tier (routing/): when the loaded
+        router prices this submission cheaper on the host walk than on
+        device waves, dispatch it STRAIGHT to the walk pool —
+        registry-only admission, no queue slot, no wave, the arena stays
+        free for wave-bound work. The walk runs with the card off,
+        clamped to the decision's predicted budget; an overrun or error
+        promotes the job back onto the wave queue in `_finalize` (the
+        routing record then settles as promoted-device-waves). False
+        keeps the job on today's queue path, which is also the answer
+        whenever no router is loaded, the walk pool is saturated, or the
+        model has no opinion, so router-off parity is structural. A
+        decision that raises is recorded `router-failed`."""
+        if self._router is None or not self.cfg.host_walk:
+            return False
+        if job.host_walk is False or job.frontier is not None:
+            return False
+        # cap direct dispatches at the walk pool's width: past that the
+        # queue's wave tier is the better wait anyway
+        if len(self._host_inflight) >= max(1, self.cfg.host_workers):
+            return False
+        try:
+            decision = self._router.decide(
+                observe.routing_features_for(
+                    job.code.hex(),
+                    summary=self.code_cache.static_summary(job.code),
+                ),
+                tiers=["host-walk", "device-waves"],
+            )
+        except Exception as why:
+            from mythril_tpu_torch.routing.router import record_failure
+
+            record_failure("service-route-decision", why, job.id)
+            return False
+        if decision is None or decision.route != "host-walk":
+            return False
+        self.queue.register(job)  # raises QueueRefusal when draining
+        job.routed = "host-walk"
+        job.route_budget_s = decision.budget_s()
+        pair = decision.expected.get("host-walk")
+        observe.journey_event(
+            job.journey_id, journey.TIER_ADMISSION, "routed",
+            route="host-walk",
+            predicted_wall_s=round(pair[0], 4) if pair else None,
+            budget_s=round(job.route_budget_s, 4),
+        )
+        now = time.monotonic()
+        job.started_t = now
+        job.device_done_t = now  # no device phase: host_s is the wall
+        self.queue.mark(job, JobState.ANALYZING)
+        # the injected-outcome shape the walk consumes (a track's empty
+        # outcome): a zeroed ExploreStats, no coverage, no triggers
+        from mythril_tpu_torch.laser.batch.explore import ExploreStats
+
+        outcome = {
+            "covered_branches": [],
+            "corpus_size": 0,
+            "triggers": {},
+            "evidence": [],
+            "device_complete": False,
+            "completeness_gates": {},
+            "degraded_lanes": 0,
+            "stats": ExploreStats().as_dict(),
+        }
+        future = self._pool.submit(self._host_task, job, None, outcome)
+        self._host_inflight[job.id] = (future, None, outcome)
+        return True
+
+    def _routing_record(self, job: Job, route: Optional[str] = None) -> None:
+        """One routing-feature record per settled service job: the same
+        features, route and outcome row the corpus driver writes, with
+        the job's journey_id. A record that cannot be built is recorded
+        `routing-record-failed`."""
+        from mythril_tpu_torch.support.resilience import (
+            DegradationLog,
+            DegradationReason,
+        )
+
+        if not observe.enabled():
+            return
+        try:
+            report = job.report or {}
+            result = {
+                "issues": report.get("issues") or [],
+                "wall_s": (report.get("timings") or {}).get("total_s"),
+                "error": job.error,
+                "complete": job.error is None,
+                "store_hit": route == "store-hit",
+                "static_answered": route == "static-answer",
+                "quarantined": route == "quarantined",
+                # the router's own vocabulary: a routed or promoted job
+                # settles as routed-<tier> / promoted-<tier>
+                "routed": job.routed if route is None else None,
+                "promoted": job.promoted if route is None else None,
+            }
+            # the store-hit and quarantine tiers settle in microseconds:
+            # their records must not pay a CFG recovery for features
+            summary = (
+                False
+                if route in ("store-hit", "quarantined")
+                else self.code_cache.static_summary(job.code)
+            )
+            observe.routing_log().record(
+                contract=f"job-{job.id}",
+                code_hash=CodeCache.code_hash(job.code),
+                features=observe.routing_features_for(
+                    job.code.hex(), summary=summary
+                ),
+                outcome=observe.routing_outcome_for(result),
+                journey_id=job.journey_id,
+            )
+        except Exception as why:
+            DegradationLog().record(
+                DegradationReason.ROUTING_RECORD_FAILED,
+                site="service-routing-record",
+                contract=job.id,
+                detail=f"{type(why).__name__}: {why}",
+            )
 
     @property
     def draining(self) -> bool:
@@ -2011,6 +2179,12 @@ class AnalysisEngine:
         timeout = self.cfg.execution_timeout
         if job.deadline is not None:
             timeout = max(1, min(timeout, int(job.deadline.remaining)))
+        routed_walk = track is None and job.routed and not job.promoted
+        if routed_walk and job.route_budget_s:
+            # routed walk: clamp to the decision's budget, so a mis-route
+            # pays at most the predicted wall (plus slack) before
+            # `_finalize` promotes it onto the wave queue
+            timeout = max(1, min(timeout, int(job.route_budget_s + 0.999)))
         observe.journey_event(
             job.journey_id, journey.TIER_HOST_WALK, "start",
             timeout_s=timeout,
@@ -2036,6 +2210,10 @@ class AnalysisEngine:
                         max_depth=128,
                         loop_bound=3,
                         device=self.device,
+                        # a routed walk keeps off the card, as the JAX
+                        # engine's walks do: the arena is the wave
+                        # thread's
+                        use_device=not routed_walk,
                     )
         except CancelledError:
             raise
@@ -2070,6 +2248,39 @@ class AnalysisEngine:
         host_result: Optional[Dict],
     ) -> None:
         now = time.monotonic()
+        # in-flight promotion (routing/): a router-dispatched walk that
+        # errored or burned its whole clamped budget was mis-routed, so
+        # instead of settling a truncated result the job goes to the
+        # HEAD of the wave queue for the device tier it was denied. One
+        # promotion at most (job.promoted latches), and the regret, the
+        # wall burnt beyond the predicted budget, is counted.
+        if (
+            track is None
+            and job.routed
+            and not job.promoted
+            and self._router is not None
+            and host_result is not None
+            and not self.queue.draining
+            and (job.deadline is None or job.deadline.remaining > 1.0)
+        ):
+            wall = now - (job.started_t or job.created_t)
+            clamp = int((job.route_budget_s or 0) + 0.999)
+            if host_result.get("error") is not None or (
+                clamp and wall >= clamp - 0.05
+            ):
+                job.promoted = "device-waves"
+                job.error = None
+                self._router.note_promotion("host-walk", "device-waves")
+                if job.route_budget_s and wall > job.route_budget_s:
+                    self._router.note_regret(wall - job.route_budget_s)
+                observe.journey_event(
+                    job.journey_id, journey.TIER_ADMISSION, "promoted",
+                    route="device-waves", walk_wall_s=round(wall, 4),
+                )
+                job.device_done_t = None
+                self.queue.unclaim(job)
+                self._wake.set()
+                return
         device_s = (
             (job.device_done_t or now) - (job.started_t or job.created_t)
         )
@@ -2118,6 +2329,10 @@ class AnalysisEngine:
             report["degraded"] = list(job.degraded)
         report["timings"]["total_s"] = round(now - job.created_t, 3)
         job.report = report
+        # the routing record lands BEFORE the settle wakes long-poll
+        # waiters: a client that sees the terminal state must find the
+        # record (and its journey_id) already in the log
+        self._routing_record(job)
         self.queue.settle(job, state)
         if state == JobState.DONE:
             # a clean completion clears any quarantine strikes: an

@@ -18,8 +18,7 @@ spike. Everything here is plain threading.
 
 The port's copy of the JAX package's service/jobs.py, less the durable
 journal's hooks (service/journal.py is not ported: `serve --journal`
-is refused) and the router's routing fields (`routing/` is not
-ported)."""
+is refused)."""
 
 from __future__ import annotations
 
@@ -88,6 +87,14 @@ class Job:
         #: the tier-ladder timeline key (observe/journey.py): service
         #: jobs reuse the job id so /v1/jobs/<id>/trace needs no map
         self.journey_id = self.id
+        #: cost-model routing (routing/): the tier the router picked at
+        #: admission ("host-walk"), the promotion target when that tier
+        #: overran its predicted budget ("device-waves"), and the budget
+        #: itself; the routing record settles as routed-<tier> /
+        #: promoted-<tier>
+        self.routed: Optional[str] = None
+        self.promoted: Optional[str] = None
+        self.route_budget_s: Optional[float] = None
         #: a donor replica's exploration frontier (the shape
         #: explore.py export_frontier packs / GET /v1/frontier/export
         #: serves): covered branch directions + parent inputs seeded
@@ -116,6 +123,10 @@ class Job:
             out["checkpoint"] = self.checkpoint_path
         if self.degraded:
             out["degraded"] = list(self.degraded)
+        if self.routed:
+            out["routed"] = self.routed
+        if self.promoted:
+            out["promoted"] = self.promoted
         if self.report is not None:
             out["report"] = self.report
         return out

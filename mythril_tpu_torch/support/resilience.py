@@ -126,6 +126,15 @@ class DegradationReason:
     #: stands, the next run recomputes it (port-only: the JAX package
     #: only logs it)
     STORE_WRITEBACK_FAILED = "store-writeback-failed"
+    #: the learned router (routing/) raised while it loaded or decided
+    #: a route: that call site keeps the built-in ladder (port-only: the
+    #: JAX package only logs it; a refused artifact is counted in
+    #: mtpu_router_refused_total, not recorded here)
+    ROUTER_FAILED = "router-failed"
+    #: a routing-feature record (observe/routing.py) could not be built
+    #: or written: one row of the training log is lost, the analysis
+    #: stands (port-only: the JAX package only logs it)
+    ROUTING_RECORD_FAILED = "routing-record-failed"
 
 
 #: observers notified after every DegradationLog.record — the

@@ -25,7 +25,11 @@ CDCL of the port's own g++ library), the host walk of a contract under
 detection modules), the static pass (`summary_for`) and the `lint`
 command, a hybrid VMTests case (the host takeover), a job through the
 analysis service (service/: its HTTP server, engine and client, the
-metrics registry's exposition) and the `serve` command's parsing, and an
+metrics registry's exposition) and the `serve` command's parsing, the
+routing triage and the solver lab (routing/, observe/routing.py,
+analysis/solverlab.py: `route train` and `route explain` on a small log,
+`analyze_corpus(router_dir=)`, a captured query through `solverlab
+report` and a host replay), and an
 import of every module of the package (crypto/ and the precompiles
 among them), and checks that `jax` never
 entered `sys.modules`, that no module of the JAX package did either,
@@ -200,6 +204,34 @@ graph_out = io.StringIO()
 with contextlib.redirect_stdout(graph_out):
     assert cli.main(["graph", graph_dir, "--json"]) == 0
 assert json.loads(graph_out.getvalue())["schema_version"] == linkset.GRAPH_SCHEMA_VERSION
+from mythril_tpu_torch import routing
+from mythril_tpu_torch.analysis import solverlab
+from mythril_tpu_torch.observe import routing as routing_log
+route_dir = tempfile.mkdtemp()
+log_path = os.path.join(route_dir, "routing.jsonl")
+lines = [json.dumps({"schema_version": routing_log.SCHEMA_VERSION, "contract": f"c{i}",
+                     "code_hash": "", "journey_id": None,
+                     "features": routing_log.features_for(code),
+                     "outcome": {"route": route, "wall_s": wall, "complete": True}})
+         for i, (code, route, wall) in enumerate([("33ff", "host-walk", 0.1),
+                                                  ("600035600757005bfe", "device-owned", 2.0)])]
+open(log_path, "w").write("\n".join(lines * 3) + "\n")
+with contextlib.redirect_stdout(io.StringIO()) as route_out:
+    assert cli.main(["route", "train", "--log", log_path, "--out", route_dir, "--json"]) == 0
+    assert cli.main(["route", "explain", "--log", log_path, "--router", route_dir,
+                     "--json"]) == 0
+assert routing.load_router(route_dir).version == 1, route_out.getvalue()
+routed = corpus.analyze_corpus([("33ff", "", "k")], use_device=False, router_dir=route_dir)
+assert routed[0]["complete"] and "routed" not in routed[0], routed
+from mythril_tpu_torch.observe import querylog
+querylog.configure_capture(route_dir)
+get_model((symbol_factory.BitVecSym("iso_lab", 256) * 5 == 25,), enforce_execution_time=False)
+querylog.configure_capture(None)
+with contextlib.redirect_stdout(io.StringIO()) as lab_out:
+    assert cli.main(["solverlab", "report", "--corpus", route_dir, "--json"]) == 0
+assert json.loads(lab_out.getvalue())["queries"] == 1, lab_out.getvalue()
+assert solverlab.replay_corpus(querylog.load_corpus(route_dir), engines=["host"])[
+    "replay"]["host"]["agreement_pct"] == 100.0
 import importlib, pkgutil
 import mythril_tpu_torch
 for mod in pkgutil.walk_packages(mythril_tpu_torch.__path__, "mythril_tpu_torch."):
@@ -266,6 +298,8 @@ def test_entry_points_without_device_raise_where_no_cuda():
     from mythril_tpu_torch.laser import flip_frontier
     from mythril_tpu_torch.laser.batch import explore
     from mythril_tpu_torch.analysis import corpus, dispatcher_probe, hybrid_fuzz, replay
+    from mythril_tpu_torch.analysis import solverlab
+    from mythril_tpu_torch.observe import querylog
     from mythril_tpu_torch.interfaces import cli
     from mythril_tpu_torch.mythril import MythrilAnalyzer, MythrilDisassembler
     from mythril_tpu_torch.laser.smt import terms as T
@@ -298,7 +332,10 @@ def test_entry_points_without_device_raise_where_no_cuda():
                  lambda: cli.main(["analyze", "--bin-runtime", "-c", "33ff33ff"]),
                  lambda: MythrilAnalyzer(MythrilDisassembler()),
                  lambda: AnalysisEngine(),
-                 lambda: cli.main(["serve", "--port", "0"])):
+                 lambda: cli.main(["serve", "--port", "0"]),
+                 lambda: solverlab._replay_device(query, 16, 8),
+                 lambda: solverlab.tune_corpus([{"sha": "0" * 64, "program":
+                                                 querylog.serialize_terms(query)}])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

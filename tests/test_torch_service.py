@@ -633,8 +633,6 @@ REFUSED = [
     (["--devices", "2"], {}, "parallel/mesh.py"),
     (["--journal", "J"], {}, "service/journal.py"),
     (["--recover"], {}, "service/journal.py"),
-    (["--router", "R"], {}, "routing/"),
-    ([], {"MYTHRIL_ROUTER_DIR": "R"}, "routing/"),
     (["--kernel-pack", "P"], {}, "compileplane/"),
     (["--kernel-cache", "K"], {}, "compileplane/"),
     ([], {"MYTHRIL_KERNEL_CACHE": "K"}, "compileplane/"),
